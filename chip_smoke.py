@@ -9,20 +9,24 @@ Phases, in order; any failure exits non-zero:
   2. build: the sweep-scan kernel (csrc/sweep_scan.cu, nvcc for sm_90a)
      and the native BAM ingest library, both from this checkout;
   3. kernel vs plain version on an adversarial case: blocks given to the
-     sweep engine on the card, the kernel's inputs taken from the
-     engine's own launch and held against sweep_scan_reference (exact
-     int32 equality), the statistics against the numpy oracle;
+     sweep engine on the card, the kernel's inputs (sorted keys, length
+     table) taken from the engine's own launch and held against
+     sweep_scan_reference (all four outputs exactly equal), the
+     statistics against the numpy oracle;
   4. main path: the bench workload (32 contigs x 1 Mbp at 20x, 150 bp
      reads, ~4.27 M reads) as a sorted BGZF BAM, through the port's CLI
      `contig -b ... -m mean trimmed_mean variance covered_fraction` on
      the card: a warm-up run that records the inputs of every kernel
      launch and every engine batch, then a run with the kernel's launch
-     count set to 0 just before and read just after; the TSV must equal
-     the same command on the CPU (the plain path) and the per-contig
+     count set to 0 just before and read just after (one launch per
+     engine batch), and the peak device memory of that run; the TSV must
+     equal the same command on the CPU (the plain path) and the per-contig
      statistics the numpy oracle's. The kernel is then held against its
      plain version on each recorded launch and timed there with CUDA
-     events, and the recorded engine batches are replayed for the
-     engine-only rate;
+     events: `ms` one wrapper call at a time (host launch gaps included),
+     `device_ms` with the calls queued ahead of the card (its device
+     time, memset included), and the recorded engine batches are replayed
+     for the engine-only rate;
   5. genome mode: `genome -s '~'` on a smaller BAM (whole-file route),
      checked the same way.
 
@@ -34,7 +38,6 @@ import contextlib
 import json
 import os
 import shutil
-import subprocess
 import sys
 import tempfile
 import threading
@@ -50,44 +53,33 @@ H100_BYTES_PER_S = 3.35e12   # HBM3, NVIDIA data sheet (SXM)
 # operations (33.5 T lane-instructions/s), and an SM has 64 INT32 lanes
 # beside its 128 fp32 lanes
 H100_INT32_OPS_PER_S = 67e12 / 2 * 64 / 128
+# bytes per event the kernel must move: the int64 key in; depth, w_len_all
+# and seg (int32) out. The length table and per_seg add 4 (n_seg + 1) and
+# 48 n_seg bytes a launch.
+KERNEL_BYTES_PER_EVENT = 8 + 3 * 4
 # int32 operations per event of sweep_scan_reference, counted from its
-# body (a lexmax step is 3: two compares and a select)
+# body; an int64 operation counts as two
 KERNEL_OPS_PER_EVENT = sum((
-    1,      # sign scan
-    1,      # sentinel test
-    1 + 3,  # length fill: select, lexmax
-    1 + 3,  # carry fill: select, lexmax
-    1,      # depth
+    12,     # decode: pad test, seg (shift, select), pos (shift, and, sub,
+            # select), sentinel test, sign (or, and, test, 2 selects)
+    4,      # depth: sign scan, sentinel jump, its scan, subtract
+    1,      # length: len_tab gather
     2,      # gap end: test, select
     4,      # full_len: min, max, sub, clamp
     7,      # w_len: sub, min, max, sub, clamp, len > 2ee test, select
     3,      # padding: test, 2 selects
-    3,      # covered: test, 2 selects
-    3,      # window-max value: 2 tests, select
-    3,      # window-max fill: lexmax
+    1,      # covered test
+    2 * 3,  # sum_w: mask select, multiply, add (int64)
+    2,      # cov_w: add (int64)
+    2 * 2,  # cov_f: mask select, add (int64)
+    2 + 2 * 2,  # max_w: w > 0 test, and, select and max (int64)
+    2 * 3,  # sq_w: two multiplies, add (int64)
+    1 + 2 * 3,  # minpay: w > 0 test, sub, select, max (int64)
 ))
 
 
 def log(msg):
     print(msg, file=sys.stderr, flush=True)
-
-
-def cuda_ms(fn, reps):
-    """Median milliseconds of fn() over reps runs, timed with CUDA events."""
-    import torch
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
 
 
 def blocks_of(tids, starts, lengths, read_len):
@@ -112,10 +104,11 @@ def recording(module, name, store, copy):
 
 
 def kernel_launches(store):
-    """Records the six input tensors and ee of each sweep-scan call."""
+    """Records the inputs (key_s, len_tab, n_seg, ee) of each sweep-scan
+    call."""
     from coverm_tpu_torch.ops import sweep as S
     return recording(S, "sweep_scan", store,
-                     lambda a, k: (tuple(t.clone() for t in a[:6]), a[6]))
+                     lambda a, k: (a[0].clone(), a[1].clone(), *a[2:4]))
 
 
 def engine_batches(store):
@@ -129,17 +122,19 @@ def engine_batches(store):
     return recording(S, "compute_depth_stats_sweep", store, copy)
 
 
-def check_kernel(name, ins, ee):
-    """Kernel vs plain version on the card: exact equality of all six
-    outputs; returns the largest absolute difference (0)."""
+def check_kernel(name, ins):
+    """Kernel vs plain version on the card: exact equality of all four
+    outputs (depth, w_len_all, seg, per_seg); returns the largest
+    absolute difference (0)."""
     import torch
     from coverm_tpu_torch.ops import sweep_scan as K
-    got = K.sweep_scan(*ins, ee)
-    want = K.sweep_scan_reference(*ins, ee)
+    got = K.sweep_scan(*ins)
+    want = K.sweep_scan_reference(*ins)
     torch.cuda.synchronize()
-    err = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+    err = max(int((g - w).abs().max()) if g.numel() else 0
               for g, w in zip(got, want))
-    log(f"[kernel] {name}: E={ins[0].numel()} max_abs_err={err}")
+    log(f"[kernel] {name}: E={ins[0].numel()} n_seg={ins[2]} "
+        f"max_abs_err={err}")
     if err != 0:
         raise SystemExit(f"sweep-scan kernel disagrees with its plain "
                          f"version on {name}: max_abs_err={err}")
@@ -178,7 +173,7 @@ def check_adversarial(dev):
                                         trim=TRIM, device=dev)
     if len(launches) != 1:
         raise SystemExit("adversarial case: expected one kernel launch")
-    check_kernel("adversarial", *launches[0])
+    check_kernel("adversarial", launches[0])
     check_stats("adversarial", got,
                 compute_depth_stats_numpy(layout, tids, starts, ends,
                                           trim=TRIM))
@@ -235,15 +230,13 @@ def main():
     from coverm_tpu_torch.ops.sweep import (DepthAccumulator,
                                             compute_depth_stats_sweep)
     from coverm_tpu_torch.synth import write_sorted_bam
+    from coverm_tpu_torch.timing import card_line, event_ms, queued_ms
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
 
     # ---- 1. card
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = card_line()
     log(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # ---- 2. build: the kernel and the native ingest library together
@@ -282,17 +275,20 @@ def main():
         with kernel_launches(launches_in), engine_batches(batches):
             run_cli(argv, os.path.join(work, "warm.tsv"), dev)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         K.sweep_scan_launches = 0
         t0 = time.perf_counter()
         tsv_gpu = run_cli(argv, os.path.join(work, "gpu.tsv"), dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = K.sweep_scan_launches
+        peak_bytes = torch.cuda.max_memory_allocated()
         if launches <= 0:
             raise SystemExit("main path did not launch the sweep-scan kernel")
-        if launches != len(launches_in):
+        if launches != len(launches_in) or launches != len(batches):
             raise SystemExit(f"main path launched the kernel {launches} "
-                             f"times, its warm-up {len(launches_in)}")
+                             f"times, its warm-up {len(launches_in)} over "
+                             f"{len(batches)} engine batches")
         tsv_cpu = run_cli(argv, os.path.join(work, "cpu.tsv"),
                           torch.device("cpu"))
         if tsv_gpu != tsv_cpu:
@@ -304,20 +300,23 @@ def main():
         # the kernel against its plain version at each main-path launch,
         # and its time there: sums over the launches of one main-path run
         err = 0
-        kernel_ms = plain_ms = bytes_s = ops_s = 0.0
+        kernel_ms = device_ms = plain_ms = bytes_s = ops_s = 0.0
         events = []
-        for i, (ins, ee) in enumerate(launches_in):
-            err = max(err, check_kernel(f"main-path launch {i}", ins, ee))
-            E = ins[0].numel()
+        for i, ins in enumerate(launches_in):
+            err = max(err, check_kernel(f"main-path launch {i}", ins))
+            E, n_seg = ins[0].numel(), ins[2]
             events.append(E)
-            kernel_ms += cuda_ms(lambda: K.sweep_scan(*ins, ee), 30)
-            plain_ms += cuda_ms(lambda: K.sweep_scan_reference(*ins, ee), 20)
-            bytes_s += 12 * 4 * E / H100_BYTES_PER_S
+            kernel_ms += event_ms(lambda: K.sweep_scan(*ins), 30)
+            device_ms += queued_ms(lambda: K.sweep_scan(*ins), 30)
+            plain_ms += event_ms(lambda: K.sweep_scan_reference(*ins), 20)
+            bytes_s += (KERNEL_BYTES_PER_EVENT * E + 4 * (n_seg + 1)
+                        + 48 * n_seg) / H100_BYTES_PER_S
             ops_s += KERNEL_OPS_PER_EVENT * E / H100_INT32_OPS_PER_S
         bound_ms = max(bytes_s, ops_s) * 1e3
         bound_by = "bytes" if bytes_s >= ops_s else "operations"
         log(f"[kernel] {launches} launches, E {events}: kernel "
-            f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{kernel_ms:.4f} ms one call at a time ({device_ms:.4f} ms "
+            f"queued), plain {plain_ms:.4f} ms, bound "
             f"{bound_ms:.4f} ms ({bound_by}; bytes {bytes_s * 1e3:.4f} ms, "
             f"operations {ops_s * 1e3:.4f} ms); {card}")
 
@@ -340,7 +339,8 @@ def main():
         log(f"[main path] {n_reads} reads: decode-inclusive "
             f"{n_reads / wall:.0f} reads/s ({wall:.3f} s), engine-only "
             f"{n_reads / device_s:.0f} reads/s ({device_s:.3f} s, "
-            f"{len(batches)} batches), {launches} kernel launches; {card}")
+            f"{len(batches)} batches), {launches} kernel launches, peak "
+            f"device memory {peak_bytes} bytes; {card}")
 
         # ---- 5. genome mode, whole-file route
         gbam = os.path.join(work, "genome.bam")
@@ -370,6 +370,7 @@ def main():
         "max_abs_err": err,
         "ms": kernel_ms,
         "kernel_ms": kernel_ms,
+        "device_ms": device_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
@@ -379,6 +380,7 @@ def main():
         "build_s": build_s,
         "decode_inclusive_reads_per_s": n_reads / wall,
         "device_only_reads_per_s": n_reads / device_s,
+        "main_path_peak_device_bytes": peak_bytes,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

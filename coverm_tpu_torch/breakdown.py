@@ -8,9 +8,10 @@ directory, runs `contig -b ... -m mean trimmed_mean variance
 covered_fraction` through the CLI on the card once to warm up, once
 under a host clock, and once under torch.profiler. Prints one JSON
 object: the card, the wall time, the device's busy time and idle share
-over the profiled run, and device milliseconds by layer (the event
-sort, the sweep-scan kernel, cumsums, gathers and searches, copies, the
-rest) and the TOP_KERNELS kernels by device time. Needs a CUDA device.
+over the profiled run, and device milliseconds by layer (the sorts,
+the sweep-scan kernel, cumsums, gathers, searches, repeat_interleave,
+copies, the rest) and the TOP_KERNELS kernels by device time. Needs a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -18,7 +19,6 @@ from __future__ import annotations
 import json
 import os
 import shutil
-import subprocess
 import tempfile
 import time
 
@@ -27,12 +27,18 @@ import torch
 METHODS = ["mean", "trimmed_mean", "variance", "covered_fraction"]
 TOP_KERNELS = 15
 
-# layer of a device activity, by the first pattern its name contains
+# layer of a device activity, by the first pattern its name contains:
+# "search" before "sort" (searchsorted_cuda_kernel), and PyTorch's
+# repeat_interleave kernel (compute_cuda_kernel) by its own name. The
+# event sort and the trimmed-mean re-sort launch the same radix-sort
+# kernels, so they share one layer.
 LAYERS = [("sweep_scan_kernel", "sweep-scan kernel (K1)"),
           ("memcpy htod", "h2d copy"), ("memcpy dtoh", "d2h copy"),
-          ("memset", "memset"), ("sort", "event sort"),
+          ("memset", "memset"), ("search", "searchsorted"),
+          ("sort", "sorts (event + trimmed-mean)"),
           ("scan", "cumsum / cummax"), ("index", "gather / scatter"),
-          ("gather", "gather / scatter"), ("search", "searchsorted"),
+          ("gather", "gather / scatter"),
+          ("compute_cuda_kernel", "repeat_interleave"),
           ("repeat", "repeat_interleave")]
 
 
@@ -51,11 +57,9 @@ def main() -> int:
 
     from .cli import main as cli_main
     from .synth import write_sorted_bam
+    from .timing import card_line
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = card_line()
     dev = torch.device("cuda")
     work = tempfile.mkdtemp(prefix="coverm_tpu_torch_breakdown_")
     try:

@@ -1,40 +1,55 @@
-// Fused post-sort sweep scan for Hopper (sm_90a).
+// Post-sort sweep scan for Hopper (sm_90a): a segmented scan over the
+// sorted event keys with decoupled look-back, which also reduces the
+// per-contig statistics.
 //
 // Replaces the TPU kernel coverm_tpu/ops/pallas_sweep.py::_sweep_kernel
-// (called through pallas_sweep_scan). Input: six int32 event arrays
-// sorted by (contig, position), one sentinel (pos == -1) first in each
-// contig carrying the contig length in `paylen`. One pass computes, per
-// event:
-//   - the running depth: the inclusive sign scan minus the per-contig
-//     carry, the scan value at the contig's sentinel forward-filled by a
-//     lexicographic (seg, value) max-scan;
-//   - the contig length, forward-filled from the sentinel's paylen;
-//   - the gap length full_len over [0, len) and the window length w_len
-//     over [ee, len - ee), zeroed when len <= 2*ee and on padding events
-//     (pos >= pad_pos);
-//   - the running per-contig window-max fill (max_seg, max_val).
-// Outputs: depth, w_len and full_len masked to depth > 0, max_seg,
-// max_val, and w_len unmasked (the trimmed-mean rank queries and the
-// window minimum read depth-0 window gaps too).
+// (through pallas_sweep_scan, pallas_call at :207) together with the
+// scans the JAX package runs after it in ops/sweep.py::_sweep_core: the
+// cummax fills of length, carry, window max and window min, the four
+// int64 cumsums and the per-contig boundary differences.
 //
-// Bound: 6 int32 inputs read once and 6 int32 outputs written once,
-// 48 bytes per event, so memory bandwidth bounds it: about 0.03 ms for
-// 2 M events at 3.35 TB/s. The arithmetic is a few dozen integer
-// operations per event.
+// Input: E int64 keys sorted ascending, key = seg<<34 | (pos+1)<<2 |
+// is_start<<1, one sentinel (pos == -1) first in each segment, padding
+// INT64_MAX last; len_tab: int32[n_seg + 1] segment lengths, 0 at n_seg.
+// Two facts about such keys remove the TPU kernel's forward fills:
+//   - the length fill at an event of segment s is len_tab[s], because
+//     the sentinel comes first in its segment: a gather that hits L1/L2;
+//   - the global sign sum at a sentinel is >= 0 (every earlier segment
+//     is complete) and the carry fill is that sum, so depth is the sum
+//     of the signs since the last sentinel: a segmented sum scan.
+// The consumer reads the window max and min fills and the cumsums only at
+// each segment's last event, so they become per-segment reductions:
+// integer adds and maxima, exact in any order.
+// Outputs: depth, w_len_all (window gap length, unmasked) and seg, int32[E];
+// per_seg, int64[6, n_seg]: sum_w, cov_w, cov_f, max_w, sq_w and
+// minpay = max(2^31 - depth) over window gaps (the JAX encoding of the
+// window minimum).
 //
-// Design: a chained scan. The TPU kernel carried 7 int32 words in SMEM
-// from one grid step to the next, relying on the grid running in order;
-// GPU blocks run in no order. Here each block takes its tile index from
-// an atomic ticket (so tiles are claimed in launch order and a block
-// only ever waits on a block that is already running), computes its
-// tile's local scans (sign sum, length fill, sentinel-carry fill), then
-// waits on its predecessor's published state, folds it in with O(1)
-// work, and publishes its own. The window-max fill depends on depth, so
-// it forms a second chain, published after the tile's depths and the
-// local max-scan are known: the fills are ordered after the sign scan as
-// in the TPU kernel. Each link of both chains costs a flag round trip
-// through L2 plus O(1) arithmetic; the tile scans themselves run in
-// parallel across blocks.
+// Bound: 8 bytes read and 12 written per event, 20 B/event, so memory
+// bandwidth bounds it: 0.054 ms for the 9.0 M events of a bench-size run
+// at 3.35 TB/s. The integer work is a few dozen operations per event.
+//
+// Design, to meet that bound:
+//   - a tile of kThreads x kItems events per block, claimed from an atomic
+//     ticket, so a block only ever waits on blocks that already run;
+//   - the keys come in with coalesced 16-byte loads into a padded shared
+//     buffer, from which each thread takes kItems consecutive keys
+//     without bank conflicts; outputs leave as 16-byte stores;
+//   - the only cross-tile dependency is one int32, the segmented sign
+//     sum, carried by decoupled look-back (Merrill & Garland, "Single-pass
+//     Parallel Prefix Scan with Decoupled Look-back", 2016). Each tile
+//     publishes one 64-bit descriptor (status, holds-a-sentinel bit,
+//     value) with one store: no payload to order against a flag. A tile
+//     that holds a sentinel knows its inclusive value at once and
+//     publishes it so; the others publish their aggregate, then warp 0
+//     reads up to 32 predecessors' descriptors at a time and adds the
+//     aggregates back to the first inclusive one;
+//   - per-segment reductions in registers over each thread's runs, a
+//     block-wide segmented scan over the threads' last runs, then one
+//     atomic per (block, segment run) and statistic, skipped where the
+//     value is 0: a tile inside one contig makes at most six;
+//   - one zeroed scratch buffer (per_seg, the ticket, the descriptors),
+//     so one memset per launch.
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -43,97 +58,123 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kItems = 8;
-constexpr int kTile = kThreads * kItems;  // 2048 events, the TPU tile size
+constexpr int kItems = 16;  // events per thread: a multiple of 4
+constexpr int kTile = kThreads * kItems;
 constexpr int kWarps = kThreads / 32;
-constexpr int kStateInts = 16;            // per-tile published state
-constexpr int kHeaderInts = 16;           // scratch[0] is the ticket
+constexpr int kVecs = kItems / 2;  // 16-byte vectors of two keys a thread
+constexpr int kRow = kVecs + 1;    // a thread's padded row in shared memory
+constexpr int kStats = 6;
+constexpr long long kPadKey = LLONG_MAX;
+constexpr long long kBigM = 1LL << 31;
+constexpr unsigned kFull = 0xffffffffu;
+static_assert(kItems % 4 == 0, "outputs leave in groups of four");
 
-// Published state of tile t at scratch[kHeaderInts + kStateInts * t]:
-//   [0] stage-1 flag  [1] sign sum  [2,3] length fill  [4,5] carry fill
-//   [8] stage-2 flag  [9,10] window-max fill
+// A tile's look-back descriptor: status in bits 62-63 (0 empty, so the
+// memset clears it), bit 32 set when the tile holds a sentinel, and the
+// int32 value in bits 0-31.
+constexpr unsigned long long kAggregate = 1ull << 62;
+constexpr unsigned long long kInclusive = 2ull << 62;
+constexpr unsigned long long kStatusMask = 3ull << 62;
+constexpr unsigned long long kHasSentinel = 1ull << 32;
+// A predecessor holds an earlier ticket, so it runs and publishes; a
+// descriptor still empty after ~10 s of polling means a broken invariant,
+// and the kernel traps (a launch error) rather than hanging the card.
+constexpr long long kSpinLimit = 1LL << 27;
 
-struct Pair {
-  int s, v;
-};
-
-// Lexicographic max of (seg, value) pairs, b later than a (the TPU
-// kernel's _lexmax).
-__device__ __forceinline__ Pair lexmax(Pair a, Pair b) {
-  bool take_b = (b.s > a.s) || (b.s == a.s && b.v >= a.v);
-  return take_b ? b : a;
-}
-
-// Blend an inter-tile carry into a tile-local fill (the TPU kernel's
-// fill(): the carry wins only when strictly greater).
-__device__ __forceinline__ Pair blend(Pair c, Pair f) {
-  bool take_c = (c.s > f.s) || (c.s == f.s && c.v > f.v);
-  return take_c ? c : f;
-}
-
-// Tile-local summary of the sentinel-carry fill. The fill's value at a
-// sentinel is the GLOBAL sign scan there, unknown until the predecessor
-// state arrives; so the scan keeps, for the greatest seg seen, the
-// largest LOCAL scan value over its sentinels (a, valid when f & 1) and
-// whether any non-sentinel event (value 0) of that seg was seen (f & 2).
-struct Sent {
-  int s, a, f;
-};
-
-__device__ __forceinline__ Sent sent_combine(Sent x, Sent y) {
-  if (y.s > x.s) return y;
-  if (x.s > y.s) return x;
-  Sent r;
-  r.s = x.s;
-  if ((x.f & 1) && (y.f & 1)) {
-    r.a = max(x.a, y.a);
-  } else {
-    r.a = (x.f & 1) ? x.a : y.a;
-  }
-  r.f = x.f | y.f;
-  return r;
-}
-
-// Value of the fill once the predecessor's sign sum S is known.
-__device__ __forceinline__ int sent_value(Sent c, int S) {
-  int v = INT_MIN;
-  if (c.f & 1) v = c.a + S;
-  if (c.f & 2) v = max(v, 0);
+__device__ __forceinline__ unsigned long long ld_relaxed(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(p) : "memory");
   return v;
 }
 
-__device__ __forceinline__ int shfl_up(int v, int k) {
-  return __shfl_up_sync(0xffffffffu, v, k);
-}
-__device__ __forceinline__ Pair shfl_up(Pair p, int k) {
-  return Pair{shfl_up(p.s, k), shfl_up(p.v, k)};
-}
-__device__ __forceinline__ Sent shfl_up(Sent p, int k) {
-  return Sent{shfl_up(p.s, k), shfl_up(p.a, k), shfl_up(p.f, k)};
+__device__ __forceinline__ void st_relaxed(unsigned long long* p,
+                                           unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
+               :: "l"(p), "l"(v) : "memory");
 }
 
-struct AddOp {
-  __device__ int operator()(int a, int b) const { return a + b; }
+struct Event {
+  int seg, pos, sign;
+  bool sent;
 };
-struct LexOp {
-  __device__ Pair operator()(Pair a, Pair b) const { return lexmax(a, b); }
+
+// The decode of sweep_scan.py::decode_keys.
+__device__ __forceinline__ Event decode(long long k, int n_seg, int pad_pos) {
+  if (k == kPadKey) return Event{n_seg, pad_pos, 0, false};
+  Event e;
+  e.seg = (int)(k >> 34);
+  e.pos = (int)(((k >> 2) & 0xffffffffLL) - 1);
+  e.sent = e.pos == -1;
+  e.sign = e.sent ? 0 : ((k & 2) ? 1 : -1);
+  return e;
+}
+
+// Segmented sum: f is set once a sentinel was seen, v is the sum since it.
+struct SegSum {
+  int f, v;
 };
-struct SentOp {
-  __device__ Sent operator()(Sent a, Sent b) const {
-    return sent_combine(a, b);
+struct SegSumOp {
+  __device__ SegSum operator()(SegSum a, SegSum b) const {
+    return SegSum{a.f | b.f, b.f ? b.v : a.v + b.v};
   }
 };
 
-// Block-wide inclusive scan of kItems consecutive items per thread
-// (blocked arrangement); every thread gets the block aggregate.
-template <typename T, typename Op>
-__device__ __forceinline__ T block_scan(T (&items)[kItems], Op op,
-                                        T* warp_tot) {
+// Partial statistics of one segment's run of events, in per_seg's row
+// order; rows 3 and 5 are maxima, the others sums.
+struct Run {
+  int s;
+  long long v[kStats];
+};
+
+__device__ __forceinline__ long long add64(long long a, long long b) {
+  return (long long)((unsigned long long)a + (unsigned long long)b);
+}
+
+__device__ __forceinline__ void merge(Run& into, const Run& r) {
   #pragma unroll
-  for (int i = 1; i < kItems; ++i) items[i] = op(items[i - 1], items[i]);
+  for (int k = 0; k < kStats; ++k)
+    into.v[k] = (k == 3 || k == 5) ? max(into.v[k], r.v[k])
+                                   : add64(into.v[k], r.v[k]);
+}
+
+// Segmented combine of runs in event order: b continues a's run when the
+// segments match.
+struct RunOp {
+  __device__ Run operator()(Run a, Run b) const {
+    if (a.s == b.s) merge(b, a);
+    return b;
+  }
+};
+
+__device__ __forceinline__ Run empty_run(int s) {
+  Run r;
+  r.s = s;
+  #pragma unroll
+  for (int k = 0; k < kStats; ++k) r.v[k] = 0;
+  return r;
+}
+
+__device__ __forceinline__ SegSum shfl_up(SegSum x, int k) {
+  return SegSum{__shfl_up_sync(kFull, x.f, k), __shfl_up_sync(kFull, x.v, k)};
+}
+__device__ __forceinline__ Run shfl_up(const Run& x, int k) {
+  Run r;
+  r.s = __shfl_up_sync(kFull, x.s, k);
+  #pragma unroll
+  for (int j = 0; j < kStats; ++j) r.v[j] = __shfl_up_sync(kFull, x.v[j], k);
+  return r;
+}
+
+// Block-wide exclusive scan of one element per thread, `identity` on the
+// left of thread 0; every thread also gets the block's aggregate.
+template <typename T, typename Op>
+__device__ __forceinline__ T block_exclusive_scan(T x, T identity, Op op,
+                                                  T* warp_tot, T& agg) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  T incl = items[kItems - 1];
+  T incl = x;
   #pragma unroll
   for (int k = 1; k < 32; k <<= 1) {
     T up = shfl_up(incl, k);
@@ -142,180 +183,230 @@ __device__ __forceinline__ T block_scan(T (&items)[kItems], Op op,
   T excl = shfl_up(incl, 1);  // meaningful for lane > 0
   if (lane == 31) warp_tot[warp] = incl;
   __syncthreads();
-  T agg = warp_tot[0];
-  T wpre = warp_tot[0];
+  T pre = identity;
+  agg = identity;
   #pragma unroll
-  for (int w = 1; w < kWarps; ++w) {
-    if (w < warp) wpre = op(wpre, warp_tot[w]);
+  for (int w = 0; w < kWarps; ++w) {
+    if (w < warp) pre = op(pre, warp_tot[w]);
     agg = op(agg, warp_tot[w]);
   }
-  if (warp > 0 || lane > 0) {
-    T pre = lane == 0 ? wpre : (warp > 0 ? op(wpre, excl) : excl);
-    #pragma unroll
-    for (int i = 0; i < kItems; ++i) items[i] = op(pre, items[i]);
-  }
+  if (lane > 0) pre = op(pre, excl);
   __syncthreads();  // warp_tot is reused by the next scan
-  return agg;
+  return pre;
 }
 
-// The predecessor holds an earlier ticket, so it is resident and its flag
-// arrives; a flag missing after ~10 s means a broken invariant, and the
-// kernel traps (a launch error) rather than hanging the card.
-__device__ __forceinline__ void wait_flag(const volatile int* flag) {
+// Warp 0 of tile `tile` > 0: the segmented sign sum carried into the tile,
+// from the predecessors' descriptors, 32 at a time; lane j reads tile
+// end - 1 - j. A window is used once it is published from its lane 0 up
+// to its first inclusive descriptor, or in full (CUB's rule): later
+// predecessors do not hold it up.
+__device__ __forceinline__ int look_back(const unsigned long long* desc,
+                                         long long tile) {
+  const int lane = threadIdx.x & 31;
+  int sum = 0;
   long long spins = 0;
-  while (*flag == 0) {
-    __nanosleep(64);
-    if (++spins > (1LL << 27)) __trap();
+  for (long long end = tile;; end -= 32) {
+    const long long idx = end - 1 - lane;
+    unsigned long long d;
+    unsigned incl;
+    for (;;) {
+      d = idx >= 0 ? ld_relaxed(desc + idx) : kInclusive;
+      const unsigned empty = __ballot_sync(kFull, (d & kStatusMask) == 0);
+      // the lanes below the first empty one
+      const unsigned published = empty ? (empty & (0u - empty)) - 1 : kFull;
+      incl = __ballot_sync(kFull, (d & kStatusMask) == kInclusive) & published;
+      if (incl != 0 || empty == 0) break;
+      __nanosleep(64);
+      if (++spins > kSpinLimit) __trap();
+    }
+    int v = (int)(unsigned)d;
+    if (incl != 0 && lane > __ffs(incl) - 1) v = 0;
+    sum += __reduce_add_sync(kFull, v);
+    if (incl != 0) return sum;
   }
-  __threadfence();
 }
 
-__device__ __forceinline__ void publish(volatile int* flag) {
-  __threadfence();
-  *flag = 1;
+// One atomic per non-zero statistic of a complete (block, segment) run.
+__device__ __forceinline__ void flush(const Run& r, long long* per_seg,
+                                      int n_seg) {
+  if ((unsigned)r.s >= (unsigned)n_seg) return;  // padding
+  #pragma unroll
+  for (int k = 0; k < kStats; ++k) {
+    if (r.v[k] == 0) continue;
+    long long* p = per_seg + (long long)k * n_seg + r.s;
+    if (k == 3 || k == 5)
+      atomicMax(p, r.v[k]);
+    else
+      atomicAdd(reinterpret_cast<unsigned long long*>(p),
+                (unsigned long long)r.v[k]);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
-sweep_scan_kernel(const int* __restrict__ seg_in,
-                  const int* __restrict__ pos_in,
-                  const int* __restrict__ sign_in,
-                  const int* __restrict__ paylen_in,
-                  const int* __restrict__ nseg_in,
-                  const int* __restrict__ npos_in,
+sweep_scan_kernel(const long long* __restrict__ keys,
+                  const int* __restrict__ len_tab,
                   int* __restrict__ depth_out, int* __restrict__ wlen_out,
-                  int* __restrict__ flen_out, int* __restrict__ maxs_out,
-                  int* __restrict__ maxv_out, int* __restrict__ wall_out,
-                  int* scratch, long long E, int ee, int pad_pos) {
-  __shared__ int s_tile;
-  __shared__ int s_prev[7];
-  __shared__ int w_add[kWarps];
-  __shared__ Pair w_pair[kWarps];
-  __shared__ Sent w_sent[kWarps];
+                  int* __restrict__ seg_out, long long* per_seg,
+                  unsigned long long* ticket, unsigned long long* desc,
+                  long long E, int n_seg, int ee, int pad_pos) {
+  __shared__ longlong2 s_keys[kThreads * kRow];
+  __shared__ SegSum s_wsum[kWarps];
+  __shared__ Run s_wrun[kWarps];
+  __shared__ long long s_tile;
+  __shared__ int s_prefix;
 
-  if (threadIdx.x == 0) s_tile = atomicAdd(&scratch[0], 1);
+  const int tid = threadIdx.x;
+  if (tid == 0) s_tile = (long long)atomicAdd(ticket, 1ull);
   __syncthreads();
-  const long long t = s_tile;
-  const long long base = t * kTile + (long long)threadIdx.x * kItems;
-  volatile int* mine = scratch + kHeaderInts + kStateInts * t;
-  volatile int* prev = mine - kStateInts;
+  const long long tile = s_tile;
+  const long long base = tile * kTile;
 
-  int seg[kItems], pos[kItems], li[kItems], nseg[kItems], npos[kItems];
-  Pair L[kItems];
-  Sent C[kItems];
+  // ---- keys: coalesced 16-byte loads into padded rows; the ragged tail
+  // reads as padding, which is never stored
+  const longlong2* kv = reinterpret_cast<const longlong2*>(keys);
   #pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    const long long idx = base + i;
-    if (idx < E) {
-      seg[i] = seg_in[idx];
-      pos[i] = pos_in[idx];
-      li[i] = sign_in[idx];
-      L[i].v = paylen_in[idx];
-      nseg[i] = nseg_in[idx];
-      npos[i] = npos_in[idx];
-    } else {  // ragged tail: after every real event, never stored
-      seg[i] = INT_MAX;
-      pos[i] = pad_pos;
-      li[i] = 0;
-      L[i].v = 0;
-      nseg[i] = INT_MAX;
-      npos[i] = pad_pos;
+  for (int j = 0; j < kVecs; ++j) {
+    const int c = j * kThreads + tid;  // vector within the tile
+    const long long i = base + 2LL * c;
+    longlong2 v;
+    if (i + 1 < E) {
+      v = kv[(base >> 1) + c];
+    } else {
+      v.x = i < E ? keys[i] : kPadKey;
+      v.y = kPadKey;
     }
+    s_keys[(c / kVecs) * kRow + c % kVecs] = v;
   }
+  long long key_after = kPadKey;  // the key after this thread's last
+  if (tid == kThreads - 1 && base + kTile < E) key_after = keys[base + kTile];
+  __syncthreads();
+  const longlong2* row = s_keys + tid * kRow;
+  if (tid < kThreads - 1) key_after = s_keys[(tid + 1) * kRow].x;
 
-  // ---- stage 1, local: sign scan, length fill, sentinel-carry fill
-  const int sum_t = block_scan(li, AddOp(), w_add);
+  // ---- local segmented sign scan
+  int dl[kItems];
+  int first_sent = kItems;  // items before it need the carried-in sum
+  SegSum mine{0, 0};
   #pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    const bool sent = pos[i] == -1;
-    L[i] = Pair{seg[i], sent ? L[i].v : 0};
-    C[i] = sent ? Sent{seg[i], li[i], 1} : Sent{seg[i], INT_MIN, 2};
-  }
-  const Pair l_agg = block_scan(L, LexOp(), w_pair);
-  const Sent c_agg = block_scan(C, SentOp(), w_sent);
-
-  // ---- stage 1, chain: fold the predecessor's state, publish ours
-  if (threadIdx.x == 0) {
-    int p[5] = {0, -1, 0, -1, 0};  // the TPU kernel's initial carries
-    if (t > 0) {
-      wait_flag(prev);
-      #pragma unroll
-      for (int k = 0; k < 5; ++k) p[k] = prev[1 + k];
-    }
-    const Pair ln = blend(Pair{p[1], p[2]}, l_agg);
-    const Pair cn =
-        blend(Pair{p[3], p[4]}, Pair{c_agg.s, sent_value(c_agg, p[0])});
-    mine[1] = p[0] + sum_t;
-    mine[2] = ln.s;
-    mine[3] = ln.v;
-    mine[4] = cn.s;
-    mine[5] = cn.v;
-    publish(mine);
+  for (int j = 0; j < kVecs; ++j) {
+    const longlong2 v = row[j];
     #pragma unroll
-    for (int k = 0; k < 5; ++k) s_prev[k] = p[k];
+    for (int h = 0; h < 2; ++h) {
+      const Event e = decode(h ? v.y : v.x, n_seg, pad_pos);
+      const int i = 2 * j + h;
+      if (e.sent) {
+        mine = SegSum{1, 0};
+        first_sent = min(first_sent, i);
+      }
+      mine.v += e.sign;
+      dl[i] = mine.v;
+    }
+  }
+  SegSum tile_agg;
+  const SegSum excl =
+      block_exclusive_scan(mine, SegSum{0, 0}, SegSumOp(), s_wsum, tile_agg);
+
+  // ---- decoupled look-back for the sum carried into the tile
+  if (tid < 32) {
+    const bool known = tile_agg.f || tile == 0;
+    if (tid == 0)
+      st_relaxed(desc + tile, (known ? kInclusive : kAggregate) |
+                                  (tile_agg.f ? kHasSentinel : 0ull) |
+                                  (unsigned)tile_agg.v);
+    const int prefix = tile == 0 ? 0 : look_back(desc, tile);
+    if (tid == 0) {
+      if (!known)
+        st_relaxed(desc + tile, kInclusive | (unsigned)(prefix + tile_agg.v));
+      s_prefix = prefix;
+    }
   }
   __syncthreads();
-  const int S = s_prev[0];
-  const Pair p_len{s_prev[1], s_prev[2]};
-  const Pair p_car{s_prev[3], s_prev[4]};
+  const int carry_in = excl.f ? excl.v : s_prefix + excl.v;
 
-  // ---- elementwise: depth, gap and window lengths, window-max values
-  int depth[kItems], wl[kItems], fl[kItems];
-  Pair M[kItems];
+  // ---- per event: depth, gap lengths, outputs and the runs' statistics
+  Run head = empty_run(-1), cur = empty_run(decode(row[0].x, n_seg,
+                                                   pad_pos).seg);
+  bool has_head = false;
+  int o_d[4], o_w[4], o_s[4];
   #pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    const int gsign = S + li[i];
-    const int length = blend(p_len, L[i]).v;
-    const int carry =
-        blend(p_car, Pair{C[i].s, sent_value(C[i], S)}).v;
-    const int d = gsign - carry;
-    // int64 arithmetic: padding positions near INT_MAX must not wrap
-    const long long gap_end = nseg[i] == seg[i] ? npos[i] : length;
-    long long full = min(gap_end, (long long)length) - max(pos[i], 0);
-    long long w = min(gap_end, (long long)length - ee) - max(pos[i], ee);
-    full = max(full, 0LL);
-    w = length > 2 * ee ? max(w, 0LL) : 0LL;
-    if (pos[i] >= pad_pos) {
-      full = 0;
-      w = 0;
+  for (int j = 0; j < kVecs; ++j) {
+    const longlong2 v = row[j];
+    const long long nk = j + 1 < kVecs ? row[j + 1].x : key_after;
+    #pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = 2 * j + h;
+      const Event e = decode(h ? v.y : v.x, n_seg, pad_pos);
+      const Event n = decode(h ? nk : v.y, n_seg, pad_pos);
+      const int d = i < first_sent ? carry_in + dl[i] : dl[i];
+      const int length =
+          (unsigned)e.seg <= (unsigned)n_seg ? __ldg(len_tab + e.seg) : 0;
+      // int64 arithmetic: padding positions must not wrap
+      const long long gap_end = n.seg == e.seg ? n.pos : length;
+      long long full = min(gap_end, (long long)length) - max(e.pos, 0);
+      long long w = min(gap_end, (long long)length - ee) - max(e.pos, ee);
+      full = max(full, 0LL);
+      w = length > 2 * ee ? max(w, 0LL) : 0LL;
+      if (e.pos >= pad_pos) {
+        full = 0;
+        w = 0;
+      }
+      if (e.seg != cur.s) {  // a run ends inside this thread
+        if (has_head) {
+          flush(cur, per_seg, n_seg);  // complete: no other thread has it
+        } else {
+          head = cur;
+          has_head = true;
+        }
+        cur = empty_run(e.seg);
+      }
+      const bool covered = d > 0;
+      const long long d64 = d, wc = covered ? w : 0;
+      cur.v[0] = add64(cur.v[0], d64 * wc);
+      cur.v[1] = add64(cur.v[1], wc);
+      cur.v[2] = add64(cur.v[2], covered ? full : 0LL);
+      cur.v[3] = max(cur.v[3], (covered && w > 0) ? d64 : 0LL);
+      cur.v[4] = add64(cur.v[4], (long long)((unsigned long long)(d64 * d64) *
+                                             (unsigned long long)wc));
+      cur.v[5] = max(cur.v[5], w > 0 ? kBigM - d64 : 0LL);
+      o_d[i & 3] = d;
+      o_w[i & 3] = (int)w;
+      o_s[i & 3] = e.seg;
+      if ((i & 3) == 3) {
+        const long long at = base + (long long)tid * kItems + (i - 3);
+        if (at + 3 < E) {
+          *reinterpret_cast<int4*>(depth_out + at) =
+              make_int4(o_d[0], o_d[1], o_d[2], o_d[3]);
+          *reinterpret_cast<int4*>(wlen_out + at) =
+              make_int4(o_w[0], o_w[1], o_w[2], o_w[3]);
+          *reinterpret_cast<int4*>(seg_out + at) =
+              make_int4(o_s[0], o_s[1], o_s[2], o_s[3]);
+        } else {
+          #pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            if (at + q < E) {
+              depth_out[at + q] = o_d[q];
+              wlen_out[at + q] = o_w[q];
+              seg_out[at + q] = o_s[q];
+            }
+          }
+        }
+      }
     }
-    depth[i] = d;
-    wl[i] = (int)w;
-    fl[i] = (int)full;
-    M[i] = Pair{seg[i], (d > 0 && w > 0) ? d : 0};
   }
-  const Pair m_agg = block_scan(M, LexOp(), w_pair);
 
-  // ---- stage 2, chain: the window-max fill
-  if (threadIdx.x == 0) {
-    int pm[2] = {-1, 0};
-    if (t > 0) {
-      wait_flag(prev + 8);
-      pm[0] = prev[9];
-      pm[1] = prev[10];
-    }
-    const Pair mn = blend(Pair{pm[0], pm[1]}, m_agg);
-    mine[9] = mn.s;
-    mine[10] = mn.v;
-    publish(mine + 8);
-    s_prev[5] = pm[0];
-    s_prev[6] = pm[1];
+  // ---- block-wide: join each thread's head run to the runs of the
+  // threads before it, and flush every run where it ends in the tile
+  Run unused;
+  const Run before = block_exclusive_scan(cur, empty_run(-1), RunOp(),
+                                          s_wrun, unused);
+  if (has_head) {
+    if (before.s == head.s) merge(head, before);
+    flush(head, per_seg, n_seg);
   }
-  __syncthreads();
-  const Pair p_max{s_prev[5], s_prev[6]};
-
-  #pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    const long long idx = base + i;
-    if (idx < E) {
-      const Pair m = blend(p_max, M[i]);
-      const bool covered = depth[i] > 0;
-      depth_out[idx] = depth[i];
-      wlen_out[idx] = covered ? wl[i] : 0;
-      flen_out[idx] = covered ? fl[i] : 0;
-      maxs_out[idx] = m.s;
-      maxv_out[idx] = m.v;
-      wall_out[idx] = wl[i];
-    }
+  const int next_first = decode(key_after, n_seg, pad_pos).seg;
+  if (tid == kThreads - 1 || next_first != cur.s) {
+    if (before.s == cur.s) merge(cur, before);
+    flush(cur, per_seg, n_seg);
   }
 }
 
@@ -323,28 +414,30 @@ sweep_scan_kernel(const int* __restrict__ seg_in,
 
 extern "C" {
 
-// Ints of scratch the launch needs for E events (zeroed by the launch).
-long long sweep_scan_scratch_ints(long long E) {
+// int64 words of scratch one launch needs: per_seg, the ticket, one
+// descriptor a tile (zeroed by the launch).
+long long sweep_scan_scratch_words(long long E, int n_seg) {
   const long long tiles = (E + kTile - 1) / kTile;
-  return kHeaderInts + kStateInts * tiles;
+  return (long long)kStats * n_seg + 1 + tiles;
 }
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success).
-int sweep_scan_launch(const int* seg, const int* pos, const int* sign,
-                      const int* paylen, const int* next_seg,
-                      const int* next_pos, int* depth, int* w_len,
-                      int* full_len, int* max_seg, int* max_val,
-                      int* w_len_all, int* scratch, long long E, int ee,
-                      int pad_pos, void* stream) {
+// Launch on `stream`; returns cudaGetLastError() (0 on success). keys
+// must be 16-byte aligned; per_seg is scratch[0 : 6 * n_seg].
+int sweep_scan_launch(const long long* keys, const int* len_tab, int* depth,
+                      int* w_len_all, int* seg, long long* scratch,
+                      long long E, int n_seg, int ee, int pad_pos,
+                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(
+      scratch, 0, sizeof(long long) * sweep_scan_scratch_words(E, n_seg), st);
+  if (err != cudaSuccess) return (int)err;
   if (E <= 0) return 0;
   const long long tiles = (E + kTile - 1) / kTile;
-  cudaError_t err = cudaMemsetAsync(
-      scratch, 0, sizeof(int) * sweep_scan_scratch_ints(E), st);
-  if (err != cudaSuccess) return (int)err;
+  unsigned long long* ticket =
+      reinterpret_cast<unsigned long long*>(scratch + (long long)kStats * n_seg);
   sweep_scan_kernel<<<(unsigned)tiles, kThreads, 0, st>>>(
-      seg, pos, sign, paylen, next_seg, next_pos, depth, w_len, full_len,
-      max_seg, max_val, w_len_all, scratch, E, ee, pad_pos);
+      keys, len_tab, depth, w_len_all, seg, scratch, ticket, ticket + 1, E,
+      n_seg, ee, pad_pos);
   return (int)cudaGetLastError();
 }
 

@@ -18,9 +18,8 @@ block lengths, per-contig counts) and the device:
      contig sorting first in its contig;
   3. runs the post-sort sweep scan (ops/sweep_scan.py: the hand-written
      CUDA kernel on the card), which gives per-event depth and gap
-     lengths;
-  4. takes int64 cumsums and per-contig boundary differences, the window
-     min and max, the trimmed-mean rank queries and the histogram.
+     lengths and reduces the per-contig sums and the window max and min;
+  4. runs the trimmed-mean rank queries and the histogram.
 
 The result is one packed int64 vector
 [sum_w | cov_w | cov_f | max_w | sq_w | min_w | gmax (| trim) (| hist)],
@@ -37,13 +36,11 @@ import torch
 
 from ..device import resolve_device
 from .depth import DepthStats, ReferenceLayout, _bucket
-from .sweep_scan import PAD_POS, sweep_scan
+from .sweep_scan import BIGM, PAD_KEY, sweep_scan
 
 # beyond this many contigs, per-contig outputs are remapped to the dense
 # observed set on host to bound histogram/stat sizes
 DENSE_REMAP_THRESHOLD = 1 << 16
-_MASK32 = (1 << 32) - 1
-_I64_MAX = (1 << 63) - 1
 
 # speculative histogram width fused into the main sweep call; depths
 # >= this are recomputed exactly on the host for the contigs concerned
@@ -73,85 +70,41 @@ def packed_result_len(n_seg: int, need_hist: bool, n_bins: int,
     return n
 
 
-def sort_events(tids, starts, ends, valid_block, end_keep, seg_len, n_seg):
-    """The sweep-scan kernel's inputs: the six int32 event arrays (seg,
-    pos, sign, paylen, next_seg, next_pos) in sorted order.
+def sort_events(tids, starts, ends, valid_block, end_keep, n_seg):
+    """The sweep-scan kernel's input: the int64 event keys, sorted.
 
     tids/starts/ends: int32[B] (padded; valid_block False on padding)
     end_keep: bool[B] (end < contig length; end events at the contig end
               are dropped, contig.rs:178-183)
-    seg_len: int64[n_seg] contig lengths (0 for unused segments)
     """
-    dev = tids.device
     seg_b = tids.long()
     # keys: seg<<34 | (pos+1)<<2 | is_start<<1 ; sentinels use pos-field 0
     # so they sort first within their contig; padding sorts last. Events
     # at equal (seg, pos) order ends before starts (a zero-length gap).
     key_start = torch.where(
-        valid_block, (seg_b << 34) | ((starts.long() + 1) << 2) | 2, _I64_MAX)
+        valid_block, (seg_b << 34) | ((starts.long() + 1) << 2) | 2, PAD_KEY)
     key_end = torch.where(
-        end_keep, (seg_b << 34) | ((ends.long() + 1) << 2), _I64_MAX)
-    sent = torch.arange(n_seg, dtype=torch.int64, device=dev) << 34
-    key_s = torch.sort(torch.cat([sent, key_start, key_end]),
-                       stable=True).values
-
-    is_pad = key_s == _I64_MAX
-    seg_s = torch.where(is_pad, n_seg, key_s >> 34).int()
-    pos_s = torch.where(is_pad, PAD_POS, ((key_s >> 2) & _MASK32) - 1).int()
-    is_sent = pos_s == -1
-    sign_s = torch.where(is_pad | is_sent, 0,
-                         torch.where((key_s & 2) != 0, 1, -1)).int()
-    len_tab = torch.cat([seg_len.int(),
-                         torch.zeros(1, dtype=torch.int32, device=dev)])
-    paylen_s = torch.where(is_sent, len_tab[seg_s], 0).int()
-    next_seg = torch.cat([seg_s[1:], seg_s.new_full((1,), n_seg)])
-    next_pos = torch.cat([pos_s[1:], pos_s.new_full((1,), PAD_POS)])
-    return seg_s, pos_s, sign_s, paylen_s, next_seg, next_pos
+        end_keep, (seg_b << 34) | ((ends.long() + 1) << 2), PAD_KEY)
+    sent = torch.arange(n_seg, dtype=torch.int64, device=tids.device) << 34
+    return torch.sort(torch.cat([sent, key_start, key_end]),
+                      stable=True).values
 
 
-def sweep_core(tids, starts, ends, valid_block, end_keep, seg_len, n_seg,
+def sweep_core(tids, starts, ends, valid_block, end_keep, len_tab, n_seg,
                ee):
-    """Events + sort + sweep-scan kernel + per-contig reductions.
+    """Events + sort + sweep-scan kernel, which also reduces per contig.
 
-    Returns (sum_w, cov_w, cov_f, max_w, gmax, depth, w_len, seg_s, sq_w,
-    min_w); depth/w_len/seg_s are per sorted event, w_len unmasked.
+    len_tab: int32[n_seg + 1] contig lengths (0 for unused segments and
+    for padding). Returns (sum_w, cov_w, cov_f, max_w, gmax, depth,
+    w_len, seg_s, sq_w, min_w); depth/w_len/seg_s are per sorted event,
+    w_len unmasked.
     """
-    dev = tids.device
-    events = sort_events(tids, starts, ends, valid_block, end_keep, seg_len,
-                         n_seg)
-    seg_s = events[0]
-    depth, w_cov, f_cov, max_seg, max_val, w_len = sweep_scan(*events, ee)
-
-    d64 = depth.long()
-    w64 = w_cov.long()
-    cs_sum = torch.cumsum(d64 * w64, 0)
-    cs_cov = torch.cumsum(w64, 0)
-    cs_ful = torch.cumsum(f_cov.long(), 0)
-    cs_sq = torch.cumsum(d64 * d64 * w64, 0)
-    # window minimum depth via a (seg, BIG-depth) cummax fill over the
-    # UNMASKED window gaps (depth 0 included); gaps with no window
-    # overlap carry payload 0 and lose to any real gap
-    bigm = 1 << 31
-    cm_min = torch.cummax((seg_s.long() << 33)
-                          + torch.where(w_len > 0, bigm - d64, 0), 0).values
-
-    # per-contig boundary positions: first event (the sentinel) of each seg
-    bounds = torch.searchsorted(
-        seg_s, torch.arange(n_seg + 1, dtype=torch.int32, device=dev))
-    hi = (bounds[1:] - 1).clamp(min=0)  # last event of each seg
-    lo = (bounds[:-1] - 1).clamp(min=0)  # event before the sentinel
-    has_lo = bounds[:-1] > 0
-
-    def seg_diff(cs):
-        return cs[hi] - torch.where(has_lo, cs[lo], 0)
-
-    seg_ids = torch.arange(n_seg, dtype=torch.int64, device=dev)
-    min_fill = cm_min[hi] - (seg_ids << 33)
-    min_w = torch.where(min_fill > 0, bigm - min_fill, 0)
-    max_w = torch.where(max_seg[hi] == seg_ids, max_val[hi], 0).long()
-    gmax = max_w.max()
-    return (seg_diff(cs_sum), seg_diff(cs_cov), seg_diff(cs_ful), max_w,
-            gmax, depth, w_len, seg_s, seg_diff(cs_sq), min_w)
+    key_s = sort_events(tids, starts, ends, valid_block, end_keep, n_seg)
+    depth, w_len, seg_s, per_seg = sweep_scan(key_s, len_tab, n_seg, ee)
+    sum_w, cov_w, cov_f, max_w, sq_w, minpay = per_seg
+    min_w = torch.where(minpay > 0, BIGM - minpay, 0)
+    return (sum_w, cov_w, cov_f, max_w, max_w.max(), depth, w_len, seg_s,
+            sq_w, min_w)
 
 
 def hist_math(depth, w_len, seg_of_event, n_seg, n_bins):
@@ -185,7 +138,7 @@ def trimmed_math(depth, w_len, seg_s, seg_W, trim_min, trim_max, n_seg):
     valid = segi < n_seg
     d64 = depth.long()
     w64 = torch.where(valid, w_len.long(), 0)
-    key = torch.where(valid, (segi << 32) + d64, _I64_MAX)
+    key = torch.where(valid, (segi << 32) + d64, PAD_KEY)
     key_s, order = torch.sort(key, stable=True)
     w_s = w64[order]
     d_s = d64[order]
@@ -272,7 +225,7 @@ def packed_math(starts, lens_or_ends, counts_ext, seg_len, scalar_len,
     valid_block = tids < n_seg
     end_keep = valid_block & (ends < len_of)
 
-    r = sweep_core(tids, starts, ends, valid_block, end_keep, seg_len,
+    r = sweep_core(tids, starts, ends, valid_block, end_keep, len_tab,
                    n_seg, ee)
     sum_w, cov_w, cov_f, max_w, gmax, depth, w_len, seg_s, sq_w, min_w = r
     parts = [sum_w, cov_w, cov_f, max_w, sq_w, min_w, gmax.reshape(1)]

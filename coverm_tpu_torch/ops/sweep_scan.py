@@ -1,22 +1,38 @@
 """The post-sort sweep scan: a hand-written CUDA kernel and its plain version.
 
 Counterpart of the JAX package's ops/pallas_sweep.py (`pallas_sweep_scan`,
-the Pallas TPU kernel `_sweep_kernel`). The kernel source is
-csrc/sweep_scan.cu; it is compiled with nvcc for sm_90a into a shared
-library with a plain C interface on first use and bound with ctypes.
+the Pallas TPU kernel `_sweep_kernel`) together with the scans that
+`ops/sweep.py::_sweep_core` runs after it: the cummax fills of the
+window maximum and minimum, the four int64 cumsums and the per-contig
+boundary differences. The kernel source is csrc/sweep_scan.cu; it is
+compiled with nvcc for sm_90a into a shared library with a plain C
+interface on first use and bound with ctypes.
 
-Inputs: six int32[E] event arrays sorted by (seg, pos): `seg, pos, sign,
-paylen, next_seg, next_pos`. Each contig's sentinel (pos == -1) comes
-first in the contig and carries its length in `paylen`; padding events
-have pos >= PAD_POS. Outputs, six int32[E]:
+Input: the sorted int64 event keys of `sweep.sort_events`,
 
-  depth      running depth (sign scan minus the per-contig carry)
-  w_len      window gap length over [ee, len - ee), masked to depth > 0
-  full_len   gap length over [0, len), masked to depth > 0
-  max_seg,   running (seg, window-max depth) fill
-  max_val
-  w_len_all  window gap length, unmasked (depth-0 gaps hold the lowest
-             ranks of the trimmed mean and set the window minimum)
+    key = seg << 34 | (pos + 1) << 2 | is_start << 1
+
+where each segment's sentinel (pos == -1) sorts first in its segment and
+padding (INT64_MAX) sorts last, and `len_tab`, int32[n_seg + 1]: the
+segment lengths with a trailing 0 for padding. Outputs:
+
+  depth      int32[E]   running depth: the sum of the signs since the
+                        last sentinel at or before the event
+  w_len_all  int32[E]   window gap length over [ee, len - ee), unmasked
+                        (depth-0 gaps hold the lowest ranks of the
+                        trimmed mean)
+  seg        int32[E]   segment of the event, n_seg for padding
+  per_seg    int64[6, n_seg], in the packed vector's order:
+             sum_w   Σ depth · w_len over covered gaps
+             cov_w   Σ w_len over covered gaps
+             cov_f   Σ full_len (gap length over [0, len)) over covered gaps
+             max_w   max depth over covered window gaps, else 0
+             sq_w    Σ depth² · w_len over covered gaps
+             minpay  max(2³¹ - depth) over window gaps (depth 0
+                     included), else 0; min_w = 2³¹ - minpay where > 0
+
+"covered" is depth > 0. Every statistic is an integer sum or maximum, so
+the result is exact in any order.
 
 `sweep_scan` takes the kernel for CUDA tensors and the plain version,
 `sweep_scan_reference`, for CPU tensors only.
@@ -34,7 +50,11 @@ import threading
 import torch
 
 PAD_POS = 1 << 30  # position marking padding events
-N_OUT = 6
+PAD_KEY = (1 << 63) - 1  # key of a padding event
+BIGM = 1 << 31  # the window-minimum encoding: minpay = BIGM - depth
+PER_SEG_ROWS = ("sum_w", "cov_w", "cov_f", "max_w", "sq_w", "minpay")
+_MAX_ROWS = (3, 5)  # rows of per_seg reduced by max; the others by sum
+_MASK32 = (1 << 32) - 1
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "sweep_scan.cu")
@@ -68,10 +88,6 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libsweep_scan_{digest.hexdigest()[:12]}.so")
 
 
-def build_command(out: str) -> list:
-    return [_nvcc(), *NVCC_FLAGS, "-o", out, SOURCE]
-
-
 def build() -> str:
     """Compile the kernel if its library is missing; returns its path.
     The compiler's report (registers, spills) is kept beside it as
@@ -81,7 +97,8 @@ def build() -> str:
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.run(build_command(tmp), capture_output=True, text=True)
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
+                          capture_output=True, text=True)
     with open(out + ".log", "w") as f:
         f.write(proc.stdout + proc.stderr)
     if proc.returncode != 0:
@@ -95,78 +112,94 @@ def _load():
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            vp, i64 = ctypes.c_void_p, ctypes.c_longlong
-            lib.sweep_scan_scratch_ints.restype = i64
-            lib.sweep_scan_scratch_ints.argtypes = [i64]
-            lib.sweep_scan_launch.restype = ctypes.c_int
-            lib.sweep_scan_launch.argtypes = (
-                [vp] * 13 + [i64, ctypes.c_int, ctypes.c_int, vp])
+            vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+            lib.sweep_scan_scratch_words.restype = i64
+            lib.sweep_scan_scratch_words.argtypes = [i64, i32]
+            lib.sweep_scan_launch.restype = i32
+            lib.sweep_scan_launch.argtypes = [vp] * 6 + [i64, i32, i32, i32, vp]
             _lib = lib
     return _lib
 
 
-def _check(arrays):
-    E = arrays[0].shape[0]
-    for a in arrays:
-        if a.dtype != torch.int32 or a.dim() != 1 or a.shape[0] != E \
-                or not a.is_contiguous() or a.device != arrays[0].device:
-            raise ValueError("sweep_scan takes six contiguous int32[E] "
-                             "tensors on one device")
-    return E
+def _check(key_s, len_tab, n_seg):
+    if key_s.dtype != torch.int64 or key_s.dim() != 1 \
+            or not key_s.is_contiguous():
+        raise ValueError("sweep_scan takes contiguous int64[E] keys")
+    if len_tab.dtype != torch.int32 or len_tab.shape != (n_seg + 1,) \
+            or not len_tab.is_contiguous() or len_tab.device != key_s.device:
+        raise ValueError("sweep_scan takes a contiguous int32[n_seg + 1] "
+                         "length table on the keys' device")
+    if not 0 <= n_seg < (1 << 31) - 1:
+        raise ValueError(f"sweep_scan: n_seg {n_seg} out of range")
 
 
-def sweep_scan(seg, pos, sign, paylen, next_seg, next_pos, ee):
-    """(depth, w_len, full_len, max_seg, max_val, w_len_all), int32[E].
+def sweep_scan(key_s, len_tab, n_seg, ee):
+    """(depth, w_len_all, seg, per_seg) of sorted event keys.
 
-    CUDA tensors go through the kernel; CPU tensors through the plain
-    version."""
+    CUDA tensors go through the kernel, on the current stream; CPU
+    tensors through the plain version."""
     global sweep_scan_launches
-    ins = (seg, pos, sign, paylen, next_seg, next_pos)
-    E = _check(ins)
-    if seg.device.type == "cpu":
-        return sweep_scan_reference(*ins, ee)
-    if seg.device.type != "cuda":
-        raise ValueError(f"sweep_scan: unsupported device {seg.device}")
-    lib = _load()
-    outs = [torch.empty(E, dtype=torch.int32, device=seg.device)
-            for _ in range(N_OUT)]
+    n_seg = int(n_seg)
+    _check(key_s, len_tab, n_seg)
+    if key_s.device.type == "cpu":
+        return sweep_scan_reference(key_s, len_tab, n_seg, ee)
+    if key_s.device.type != "cuda":
+        raise ValueError(f"sweep_scan: unsupported device {key_s.device}")
+    dev = key_s.device
+    E = key_s.shape[0]
+    outs = [torch.empty(E, dtype=torch.int32, device=dev) for _ in range(3)]
     if E == 0:
-        return tuple(outs)
-    scratch = torch.empty(int(lib.sweep_scan_scratch_ints(E)),
-                          dtype=torch.int32, device=seg.device)
-    stream = torch.cuda.current_stream(seg.device).cuda_stream
+        return (*outs, torch.zeros(6, n_seg, dtype=torch.int64, device=dev))
+    if key_s.data_ptr() % 16:
+        raise ValueError("sweep_scan: keys must be 16-byte aligned")
+    lib = _load()
+    # one zeroed scratch: per_seg first, then the tile ticket and the
+    # look-back descriptors
+    scratch = torch.empty(int(lib.sweep_scan_scratch_words(E, n_seg)),
+                          dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.sweep_scan_launch(
-        *[t.data_ptr() for t in ins], *[t.data_ptr() for t in outs],
-        scratch.data_ptr(), E, int(ee), PAD_POS, stream)
+        key_s.data_ptr(), len_tab.data_ptr(), *[t.data_ptr() for t in outs],
+        scratch.data_ptr(), E, n_seg, int(ee), PAD_POS, stream)
     if err != 0:
         raise RuntimeError(f"sweep_scan kernel launch failed: CUDA error {err}")
     sweep_scan_launches += 1
-    return tuple(outs)
+    return (*outs, scratch[:6 * n_seg].view(6, n_seg))
 
 
-_I32_MIN = -(1 << 31)
-_LO32 = (1 << 32) - 1
+def decode_keys(key_s, n_seg):
+    """(seg, pos, sign) int32[E] of sorted event keys: padding gets
+    (n_seg, PAD_POS, 0), a sentinel pos -1 and sign 0, a start +1 and a
+    kept end -1."""
+    is_pad = key_s == PAD_KEY
+    seg = torch.where(is_pad, n_seg, key_s >> 34).int()
+    pos = torch.where(is_pad, PAD_POS, ((key_s >> 2) & _MASK32) - 1).int()
+    sign = torch.where(is_pad | (pos == -1), 0,
+                       torch.where((key_s & 2) != 0, 1, -1)).int()
+    return seg, pos, sign
 
 
-def _lexmax_fill(seg, value):
-    """Inclusive lexicographic (seg, value) max-scan from the initial pair
-    (-1, 0), as the TPU kernel's forward fills; returns (seg, value)."""
-    key = (seg.long() << 32) + (value.long() - _I32_MIN)
-    init = torch.tensor([(-1 << 32) - _I32_MIN], dtype=torch.int64,
-                        device=seg.device)
-    run = torch.cummax(torch.cat([init, key]), 0).values[1:]
-    return ((run >> 32).int(), ((run & _LO32) + _I32_MIN).int())
-
-
-def sweep_scan_reference(seg, pos, sign, paylen, next_seg, next_pos, ee):
+def sweep_scan_reference(key_s, len_tab, n_seg, ee):
     """Plain PyTorch version of the kernel (same outputs, any device)."""
     ee = int(ee)
-    zero = torch.zeros((), dtype=torch.int32, device=seg.device)
-    gsign = torch.cumsum(sign, 0, dtype=torch.int32)
+    n_seg = int(n_seg)
+    dev = key_s.device
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    seg, pos, sign = decode_keys(key_s, n_seg)
     is_sent = pos == -1
-    length = _lexmax_fill(seg, torch.where(is_sent, paylen, zero))[1]
-    carry = _lexmax_fill(seg, torch.where(is_sent, gsign, zero))[1]
-    depth = gsign - carry
+
+    # depth: the sign scan restarted at each sentinel, i.e. the global
+    # cumsum minus its value at the last sentinel at or before the event
+    gsign = torch.cumsum(sign, 0, dtype=torch.int32)
+    at_sent = gsign[is_sent]
+    jump = torch.zeros_like(gsign)
+    jump[is_sent] = at_sent - torch.cat([at_sent.new_zeros(1), at_sent[:-1]])
+    depth = gsign - torch.cumsum(jump, 0, dtype=torch.int32)
+
+    # gap i covers [pos_i, next_pos_i) within its segment
+    length = len_tab[seg.long()]
+    next_seg = torch.cat([seg[1:], seg.new_full((1,), n_seg)])
+    next_pos = torch.cat([pos[1:], pos.new_full((1,), PAD_POS)])
     gap_end = torch.where(next_seg == seg, next_pos, length)
     full_len = (torch.minimum(gap_end, length)
                 - torch.clamp(pos, min=0)).clamp(min=0)
@@ -176,8 +209,22 @@ def sweep_scan_reference(seg, pos, sign, paylen, next_seg, next_pos, ee):
     is_pad = pos >= PAD_POS
     full_len = torch.where(is_pad, zero, full_len)
     w_len = torch.where(is_pad, zero, w_len)
+
     covered = depth > 0
-    max_seg, max_val = _lexmax_fill(
-        seg, torch.where(covered & (w_len > 0), depth, zero))
-    return (depth, torch.where(covered, w_len, zero),
-            torch.where(covered, full_len, zero), max_seg, max_val, w_len)
+    d64 = depth.long()
+    w_cov = torch.where(covered, w_len, zero).long()
+    rows = (d64 * w_cov,
+            w_cov,
+            torch.where(covered, full_len, zero).long(),
+            torch.where(covered & (w_len > 0), d64, 0),
+            d64 * d64 * w_cov,
+            torch.where(w_len > 0, BIGM - d64, 0))
+    # column n_seg collects the padding events and is dropped
+    per_seg = torch.zeros(6, n_seg + 1, dtype=torch.int64, device=dev)
+    idx = seg.long()
+    for r, v in enumerate(rows):
+        if r in _MAX_ROWS:
+            per_seg[r].scatter_reduce_(0, idx, v, "amax")
+        else:
+            per_seg[r].index_add_(0, idx, v)
+    return depth, w_len, seg, per_seg[:, :n_seg].contiguous()

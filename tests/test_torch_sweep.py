@@ -231,6 +231,53 @@ def test_accumulator_over_contig_disjoint_batches():
     _assert_stats_equal(got, jax_out)
 
 
+@pytest.mark.parametrize("seed", [11, 12])
+def test_sweep_core_matches_jax(seed):
+    """`sweep_core` (keys, sort, the sweep-scan kernel's plain version
+    and its per-contig reductions) against JAX `_sweep_core` on the same
+    padded blocks: contigs with no blocks, contigs with len <= 2*ee,
+    blocks ending at the contig end, unused segments and padding blocks.
+    The per-contig statistics and gmax must be equal, and depth, w_len
+    and the segment on every real event."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    rng = np.random.default_rng(seed)
+    ee = 75
+    lengths = rng.integers(100, 6000, 17)
+    lengths[[2, 5]] = [120, 150]
+    tids, starts, ends = _blocks(rng, lengths, 4000, "u16")
+    keep = (tids != 0) & (tids != 9)
+    tids, starts, ends = tids[keep], starts[keep], ends[keep]
+    ends[::7] = lengths[tids[::7]]
+    n_seg = lengths.size + 3  # unused segments, as the size bucket leaves
+    B = tids.size + 37  # padding blocks
+    pad = lambda a, v: np.concatenate([a, np.full(B - a.size, v)])
+    t = pad(tids, n_seg).astype(np.int32)
+    s = pad(starts, 0).astype(np.int32)
+    e = pad(ends, 0).astype(np.int32)
+    seg_len = pad(lengths, 0)[:n_seg].astype(np.int64)
+    valid = t < n_seg
+    end_keep = valid & (e < np.append(seg_len, 0)[t])
+
+    want = [np.asarray(jax.device_get(x)) for x in J._fused_sweep(
+        jnp.asarray(t), jnp.asarray(s), jnp.asarray(e), jnp.asarray(valid),
+        jnp.asarray(end_keep), jnp.asarray(seg_len), n_seg=n_seg, ee=ee)]
+    len_tab = torch.from_numpy(np.append(seg_len, 0).astype(np.int32))
+    got = [x.numpy() for x in T.sweep_core(
+        *(torch.from_numpy(a) for a in (t, s, e, valid, end_keep)),
+        len_tab, n_seg, ee)]
+    for k in (0, 1, 2, 3, 8, 9):  # sum_w cov_w cov_f max_w sq_w min_w
+        np.testing.assert_array_equal(got[k], want[k], err_msg=str(k))
+    assert int(got[4]) == int(want[4])  # gmax
+    real = want[7] < n_seg
+    assert real.sum() > tids.size
+    for k in (5, 6, 7):  # depth, w_len, seg_s
+        np.testing.assert_array_equal(got[k][real], want[k][real],
+                                      err_msg=str(k))
+
+
 def test_empty_input():
     layout = ReferenceLayout.build(np.array([100, 200]), 0)
     e = np.zeros(0, np.int64)
