@@ -28,10 +28,26 @@ Phases, in order; any failure exits non-zero:
      time, memset included), and the recorded engine batches are replayed
      for the engine-only rate;
   5. genome mode: `genome -s '~'` on a smaller BAM (whole-file route),
-     checked the same way.
+     checked the same way;
+  6. CRAM: the CRAM 3.0 twin of phase 4's BAM (the same alignments,
+     synth.write_cram_twin) through `contig -b bench.cram` on the card:
+     its TSV must equal phase 4's BAM TSV byte for byte and its
+     statistics the numpy oracle's;
+  7. genes: `contig --gff genes.gff -b bench.bam` on phase 4's BAM, a
+     900 bp gene every 1,000 bp (32,000 genes, every tenth overlapping
+     the next, a few on contigs the header lacks): TSV equal to the CPU's;
+  8. `genome --sharded -s '~'` over two read-name-sorted paired shard
+     BAMs (8 contigs x 100 kbp at 20x): TSV equal to the CPU's.
 
-Prints the card line, then one {"kernels": [...]} JSON line, then the
-{"ok": true, "device": {...}} JSON line last.
+Phases 4 to 8 each run their command once to warm up (recording the
+kernel's inputs and the engine's batches), then once with the kernel's
+launch count set to 0 just before and read just after: it must equal the
+number of engine batches and be above 0. Mapping from reads is not driven
+here: it needs a mapper binary (the CPU tests use tests/fake_mapper.py).
+
+Prints the card line, then one {"kernels": [...]} JSON line (with the
+launch count of every path), then the {"ok": true, "device": {...}}
+JSON line last.
 """
 
 import contextlib
@@ -111,15 +127,23 @@ def kernel_launches(store):
                      lambda a, k: (a[0].clone(), a[1].clone(), *a[2:4]))
 
 
+@contextlib.contextmanager
 def engine_batches(store):
-    """Records (tids, starts, ends, contig_counts) of each engine batch."""
+    """Records (tids, starts, ends, contig_counts) of each engine batch,
+    wherever the engine is called from: the fused scan looks it up in
+    ops.sweep at call time, scan.py and genes.py bind it at import."""
+    from coverm_tpu_torch import genes, scan
     from coverm_tpu_torch.ops import sweep as S
 
     def copy(a, k):
         counts = k.get("contig_counts")
         return (*(np.array(x) for x in a[1:4]),
                 None if counts is None else np.array(counts))
-    return recording(S, "compute_depth_stats_sweep", store, copy)
+    with contextlib.ExitStack() as stack:
+        for module in (S, scan, genes):
+            stack.enter_context(recording(
+                module, "compute_depth_stats_sweep", store, copy))
+        yield
 
 
 def check_kernel(name, ins):
@@ -218,6 +242,58 @@ def run_cli(argv, out, device):
         return f.read()
 
 
+def drive(label, argv, work, dev, keep=False):
+    """One path through the CLI on the card: a warm-up run that records
+    the kernel's inputs and the engine's batches, then the measured run
+    with the kernel's launch count set to 0 just before and read just
+    after; it must launch once per (non-empty) engine batch. The kernel
+    is then held against its plain version on every recorded launch.
+    Returns the measured run's TSV, wall seconds, launches, peak device
+    bytes and the kernel's largest error, and (keep=True) the recorded
+    launch inputs and batches."""
+    import torch
+    from coverm_tpu_torch.ops import sweep_scan as K
+    launches_in, batches = [], []
+    with kernel_launches(launches_in), engine_batches(batches):
+        run_cli(argv, os.path.join(work, f"{label}_warm.tsv"), dev)
+    n_batches = sum(1 for b in batches if b[0].size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.sweep_scan_launches = 0
+    t0 = time.perf_counter()
+    tsv = run_cli(argv, os.path.join(work, f"{label}_gpu.tsv"), dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K.sweep_scan_launches
+    peak = torch.cuda.max_memory_allocated()
+    if launches <= 0:
+        raise SystemExit(f"{label}: the path did not launch the sweep-scan "
+                         "kernel")
+    if launches != len(launches_in) or launches != n_batches:
+        raise SystemExit(f"{label}: the kernel launched {launches} times, "
+                         f"its warm-up {len(launches_in)} over {n_batches} "
+                         "engine batches")
+    log(f"[{label}] {launches} kernel launches over {n_batches} engine "
+        f"batches; {wall:.3f} s")
+    err = max(check_kernel(f"{label} launch {i}", ins)
+              for i, ins in enumerate(launches_in))
+    if keep:
+        return tsv, wall, launches, peak, err, launches_in, batches
+    return tsv, wall, launches, peak, err
+
+
+def same_as_cpu(label, argv, tsv_gpu, work, rows):
+    """The TSV on the card equals the plain path's on the CPU and has
+    `rows` lines after its header."""
+    import torch
+    tsv_cpu = run_cli(argv, os.path.join(work, f"{label}_cpu.tsv"),
+                      torch.device("cpu"))
+    if tsv_gpu != tsv_cpu:
+        raise SystemExit(f"{label} TSV on the card differs from the CPU's")
+    if tsv_gpu.count(b"\n") != rows + 1:
+        raise SystemExit(f"{label} TSV does not have {rows} rows")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -229,7 +305,8 @@ def main():
     from coverm_tpu_torch.ops.depth import ReferenceLayout
     from coverm_tpu_torch.ops.sweep import (DepthAccumulator,
                                             compute_depth_stats_sweep)
-    from coverm_tpu_torch.synth import write_sorted_bam
+    from coverm_tpu_torch.synth import (write_cram_twin, write_gene_gff,
+                                        write_shard_bams, write_sorted_bam)
     from coverm_tpu_torch.timing import card_line, event_ms, queued_ms
 
     dev = torch.device("cuda")
@@ -252,6 +329,8 @@ def main():
     with open(lib + ".log") as f:
         log(f.read().strip())
 
+    phase_s = {"build": build_s}
+    launches_by_path = {}
     work = tempfile.mkdtemp(prefix="coverm_tpu_torch_smoke_")
     try:
         # fixture: the bench.py workload
@@ -263,47 +342,29 @@ def main():
         log(f"[fixture] {n_reads} reads, "
             f"{os.path.getsize(bam) / 1e9:.3f} GB, "
             f"{time.perf_counter() - t0:.1f} s")
+        phase_s["fixture"] = time.perf_counter() - t0
 
         # ---- 3. kernel vs plain version, adversarial case
+        t0 = time.perf_counter()
         check_adversarial(dev)
+        phase_s["adversarial"] = time.perf_counter() - t0
 
         # ---- 4. main path at the bench size; the warm-up run records the
         # kernel's inputs and the engine's batches as the main path makes
         # them
+        t_phase = time.perf_counter()
         argv = ["contig", "-b", bam, "-m", *METHODS]
-        launches_in, batches = [], []
-        with kernel_launches(launches_in), engine_batches(batches):
-            run_cli(argv, os.path.join(work, "warm.tsv"), dev)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        K.sweep_scan_launches = 0
-        t0 = time.perf_counter()
-        tsv_gpu = run_cli(argv, os.path.join(work, "gpu.tsv"), dev)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = K.sweep_scan_launches
-        peak_bytes = torch.cuda.max_memory_allocated()
-        if launches <= 0:
-            raise SystemExit("main path did not launch the sweep-scan kernel")
-        if launches != len(launches_in) or launches != len(batches):
-            raise SystemExit(f"main path launched the kernel {launches} "
-                             f"times, its warm-up {len(launches_in)} over "
-                             f"{len(batches)} engine batches")
-        tsv_cpu = run_cli(argv, os.path.join(work, "cpu.tsv"),
-                          torch.device("cpu"))
-        if tsv_gpu != tsv_cpu:
-            raise SystemExit("contig TSV on the card differs from the CPU's")
-        if tsv_gpu.count(b"\n") != 33:
-            raise SystemExit("contig TSV does not have 32 contig rows")
+        (tsv_gpu, wall, launches, peak_bytes, err, launches_in,
+         batches) = drive("contig", argv, work, dev, keep=True)
+        launches_by_path["contig_bam"] = launches
+        same_as_cpu("contig", argv, tsv_gpu, work, 32)
         want = oracle_check("contig", bam, truth, argv, dev)
 
-        # the kernel against its plain version at each main-path launch,
-        # and its time there: sums over the launches of one main-path run
-        err = 0
+        # the kernel's time at each main-path launch: sums over the
+        # launches of one main-path run
         kernel_ms = device_ms = plain_ms = bytes_s = ops_s = 0.0
         events = []
-        for i, ins in enumerate(launches_in):
-            err = max(err, check_kernel(f"main-path launch {i}", ins))
+        for ins in launches_in:
             E, n_seg = ins[0].numel(), ins[2]
             events.append(E)
             kernel_ms += event_ms(lambda: K.sweep_scan(*ins), 30)
@@ -341,24 +402,72 @@ def main():
             f"{n_reads / device_s:.0f} reads/s ({device_s:.3f} s, "
             f"{len(batches)} batches), {launches} kernel launches, peak "
             f"device memory {peak_bytes} bytes; {card}")
+        del batches
+        phase_s["main_path"] = time.perf_counter() - t_phase
 
         # ---- 5. genome mode, whole-file route
+        t0 = time.perf_counter()
         gbam = os.path.join(work, "genome.bam")
         names = [f"g{i % 3}~c{i}" for i in range(8)]
         gt, gs, gl = write_sorted_bam(gbam, n_contigs=8, contig_len=100_000,
                                       seed=1, names=names)
         gargv = ["genome", "-s", "~", "-b", gbam, "-m", *METHODS]
-        g_before = K.sweep_scan_launches
-        g_gpu = run_cli(gargv, os.path.join(work, "g_gpu.tsv"), dev)
-        if K.sweep_scan_launches <= g_before:
-            raise SystemExit("genome mode did not launch the kernel")
-        g_cpu = run_cli(gargv, os.path.join(work, "g_cpu.tsv"),
-                        torch.device("cpu"))
-        if g_gpu != g_cpu or g_gpu.count(b"\n") != 4:
-            raise SystemExit("genome TSV on the card differs from the CPU's")
+        g_gpu, _, launches_by_path["genome"], _, g_err = drive(
+            "genome", gargv, work, dev)
+        same_as_cpu("genome", gargv, g_gpu, work, 3)
         oracle_check("genome", gbam, blocks_of(gt, gs, gl, 150), gargv, dev)
+        phase_s["genome"] = time.perf_counter() - t0
+
+        # ---- 6. CRAM twin of the bench BAM, at full width
+        t0 = time.perf_counter()
+        cram = os.path.join(work, "bench.cram")
+        ct, cs, _ = write_cram_twin(cram)
+        if not (np.array_equal(ct, tids) and np.array_equal(cs, starts)):
+            raise SystemExit("the CRAM twin's reads differ from the BAM's")
+        log(f"[cram] twin of {ct.size} reads, "
+            f"{os.path.getsize(cram) / 1e9:.3f} GB, "
+            f"{time.perf_counter() - t0:.1f} s")
+        cargv = ["contig", "-b", cram, "-m", *METHODS]
+        tsv_cram, cram_wall, cram_launches, _, c_err = drive(
+            "cram", cargv, work, dev)
+        launches_by_path["cram"] = cram_launches
+        if tsv_cram != tsv_gpu:
+            raise SystemExit("CRAM TSV differs from the BAM TSV")
+        oracle_check("cram", cram, truth, cargv, dev)
+        log(f"[cram] {n_reads} reads: decode-inclusive "
+            f"{n_reads / cram_wall:.0f} reads/s ({cram_wall:.3f} s), "
+            f"{cram_launches} kernel launches; {card}")
+        phase_s["cram"] = time.perf_counter() - t0
+
+        # ---- 7. genes (--gff) on the bench BAM, at full width
+        t0 = time.perf_counter()
+        gff = os.path.join(work, "genes.gff")
+        n_genes = write_gene_gff(gff, [f"c{i}" for i in range(32)],
+                                 int(lengths[0]))
+        fargv = ["contig", "--gff", gff, "-b", bam, "-m", *METHODS]
+        tsv_gff, gff_wall, gff_launches, _, f_err = drive(
+            "gff", fargv, work, dev)
+        launches_by_path["gff"] = gff_launches
+        same_as_cpu("gff", fargv, tsv_gff, work, n_genes)
+        log(f"[gff] {n_genes} genes, {n_reads} reads: decode-inclusive "
+            f"{n_reads / gff_wall:.0f} reads/s ({gff_wall:.3f} s), "
+            f"{gff_launches} kernel launches; {card}")
+        phase_s["gff"] = time.perf_counter() - t0
+
+        # ---- 8. --sharded: two name-sorted paired shard BAMs
+        t0 = time.perf_counter()
+        shards = [os.path.join(work, f"shard{k}.bam") for k in (1, 2)]
+        n_pairs = write_shard_bams(shards)
+        sargv = ["genome", "--sharded", "-s", "~", "-b", *shards, "-m",
+                 *METHODS]
+        tsv_sh, _, launches_by_path["sharded"], _, s_err = drive(
+            "sharded", sargv, work, dev)
+        same_as_cpu("sharded", sargv, tsv_sh, work, 4)
+        log(f"[sharded] {n_pairs} pairs over {len(shards)} shards")
+        phase_s["sharded"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    log(f"[phases] seconds: {json.dumps(phase_s)}")
 
     print(card)
     print(json.dumps({"kernels": [{
@@ -367,7 +476,8 @@ def main():
         "source": "coverm_tpu_torch/csrc/sweep_scan.cu",
         "replaces": "coverm_tpu/ops/pallas_sweep.py:107",
         "launches": launches,
-        "max_abs_err": err,
+        "launches_by_path": launches_by_path,
+        "max_abs_err": max(err, g_err, c_err, f_err, s_err),
         "ms": kernel_ms,
         "kernel_ms": kernel_ms,
         "device_ms": device_ms,
@@ -381,6 +491,10 @@ def main():
         "decode_inclusive_reads_per_s": n_reads / wall,
         "device_only_reads_per_s": n_reads / device_s,
         "main_path_peak_device_bytes": peak_bytes,
+        "cram_decode_inclusive_reads_per_s": n_reads / cram_wall,
+        "gff_decode_inclusive_reads_per_s": n_reads / gff_wall,
+        "gff_genes": n_genes,
+        "phase_s": phase_s,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -787,22 +787,25 @@ def main(argv=None, device=None):
     from .device import resolve_device
     from .io.bam import BamFormatError
     from .scan import BamSortingError, MissingNMTagError
-    if args.subcommand in ("filter", "make", "cluster", "makedb"):
+    if args.subcommand in ("filter", "cluster", "makedb"):
         commands.unsupported(f"the {args.subcommand} subcommand")
     if args.subcommand == "shell-completion":
         return commands.run_shell_completion(args)
     if getattr(args, "profile_dir", None):
         commands.unsupported("--profile-dir")
-    try:
-        device = resolve_device(device)
-    except (RuntimeError, ValueError) as e:
-        print(f"Error: {e}", file=sys.stderr)
-        raise SystemExit(1)
+    if args.subcommand in ("contig", "genome"):
+        try:
+            device = resolve_device(device)
+        except (RuntimeError, ValueError) as e:
+            print(f"Error: {e}", file=sys.stderr)
+            raise SystemExit(1)
     try:
         if args.subcommand == "contig":
             return commands.run_contig(args, device)
         if args.subcommand == "genome":
             return commands.run_genome(args, device)
+        if args.subcommand == "make":  # mapping and BAM writing only
+            return commands.run_make(args)
     except (BamSortingError, MissingNMTagError, BamFormatError,
             ValueError) as e:
         # fail-fast with the reference's message on stderr

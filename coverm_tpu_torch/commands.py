@@ -50,35 +50,99 @@ def _build_sources(args):
         ff.include_supplementary = True
         ff.include_secondary = True
 
+    # every source hands its records to modes/genes, which scan them on
+    # the device the command was given
+    if args.bam_files:
+        if getattr(args, "sharded", False):
+            from .shard import ShardedBamSource
+            sources = [ShardedBamSource(args.bam_files,
+                                        _genome_exclusion_of(args))]
+            if fp.doing_filtering():
+                from .mapping.pipeline import FilteredMappedSource
+                sources = [FilteredMappedSource(s, fp, ff) for s in sources]
+        elif fp.doing_filtering():
+            sources = [FilteredBamFileSource(p, fp, ff) for p in args.bam_files]
+        else:
+            sources = [BamFileSource(p) for p in args.bam_files]
+        return sources, ff
+    # mapping from raw reads
     if getattr(args, "sharded", False):
-        unsupported("--sharded")
-    if not args.bam_files:
-        unsupported("mapping from reads (give -b sorted BAM files)")
-    if fp.doing_filtering():
-        sources = [FilteredBamFileSource(p, fp, ff) for p in args.bam_files]
-    else:
-        sources = [BamFileSource(p) for p in args.bam_files]
-    return sources, ff
+        from .mapping.pipeline import build_sharded_mapping_sources
+        return build_sharded_mapping_sources(args, fp, ff,
+                                             _genome_exclusion_of(args))
+    from .mapping import build_mapping_sources
+    return build_mapping_sources(args, fp, ff)
 
 
-def _check_slice(args):
-    """Exit early for options outside this package's routes."""
-    if args.gff:
-        unsupported("--gff")
-    if args.methods == ["strobealign-aemb"]:
-        unsupported("the strobealign-aemb method")
+def _genome_exclusion_of(args):
+    """--exclude-genomes-from-deshard wiring (coverm.rs:96-156): with a
+    separator use name-prefix exclusion; with genome FASTAs/definition
+    use the (pre-dereplication) contig->genome map."""
+    import logging
+
+    from .genome_exclusion import (GenomesAndContigsExclusionFilter,
+                                   NoExclusionGenomeFilter,
+                                   SeparatorGenomeExclusionFilter)
+    path = getattr(args, "exclude_genomes_from_deshard", None)
+    if not path:
+        return NoExclusionGenomeFilter()
+    try:
+        with open(path) as f:
+            genomes = [l.strip() for l in f if l.strip()]
+    except OSError:
+        raise SystemExit(
+            f"Failed to open file '{path}' containing list of excluded "
+            "genomes")
+    if not genomes:
+        logging.warning(
+            "No genomes read in that are to be excluded from desharding "
+            "process")
+        return NoExclusionGenomeFilter()
+    logging.info(
+        "Read in %d distinct genomes to exclude from desharding process "
+        "e.g. '%s'", len(set(genomes)), genomes[0])
+    separator = parse_separator(args) if hasattr(args, "single_genome") \
+        else getattr(args, "separator", None)
+    if separator is not None:
+        return SeparatorGenomeExclusionFilter(genomes, separator)
+    gc = getattr(args, "_predereplication_genomes_and_contigs", None)
+    if gc is None:
+        files = getattr(args, "_predereplication_genome_files", None) or \
+            parse_list_of_genome_fasta_files(args)
+        if files:
+            gc = read_genome_fasta_files(
+                files, getattr(args, "use_full_contig_names", False))
+        elif getattr(args, "genome_definition", None):
+            gc = read_genome_definition_file(args.genome_definition)
+    if gc is None:
+        # no genome metadata at all: fall back to the concatenated-FASTA
+        # separator convention
+        return SeparatorGenomeExclusionFilter(
+            genomes, CONCATENATED_FASTA_FILE_SEPARATOR)
+    return GenomesAndContigsExclusionFilter(gc, genomes)
 
 
 def run_contig(args, device=None):
-    _check_slice(args)
     stream = OutputWriter(args.output_file)
     et = EstimatorsAndTaker(args, stream)
-    et.print_headers("Contig", stream)
+    entry_type = "Gene\tContig" if args.gff else "Contig"
+    et.print_headers(entry_type, stream)
+    if args.methods == ["strobealign-aemb"]:
+        from .mapping.aemb import strobealign_aemb_coverage
+        return strobealign_aemb_coverage(args, et, stream)
     sources, ff = _build_sources(args)
-    reads_mapped = contig_coverage(
-        sources, et.taker, et.estimators,
-        print_zero_coverage_contigs=not args.no_zeros,
-        flag_filter=ff, threads=args.threads, device=device)
+    if args.gff:
+        from .genes import GeneDefinitions, gene_coverage
+        defs = GeneDefinitions.read_gff(args.gff, args.gff_feature_type)
+        reads_mapped = gene_coverage(
+            sources, et.taker, et.estimators, defs, None,
+            print_zero_coverage_genes=not args.no_zeros,
+            flag_filter=ff, threads=args.threads, device=device)
+    else:
+        reads_mapped = contig_coverage(
+            sources, et.taker, et.estimators,
+            print_zero_coverage_contigs=not args.no_zeros,
+            flag_filter=ff, threads=args.threads, device=device)
     et.printer.finalise_printing(
         et.taker, stream, reads_mapped, et.columns_to_normalise,
         et.rpkm_column, et.tpm_column)
@@ -117,7 +181,6 @@ def parse_separator(args):
 
 
 def run_genome(args, device=None):
-    _check_slice(args)
     genome_fasta_files = parse_list_of_genome_fasta_files(args)
     if genome_fasta_files:
         if (getattr(args, "min_completeness", None) is not None
@@ -125,6 +188,9 @@ def run_genome(args, device=None):
             unsupported("the CheckM quality filter")
         if getattr(args, "dereplicate", False):
             unsupported("--dereplicate")
+        # deshard exclusion uses the PRE-dereplication genome set
+        # (genomes_and_contigs_option_predereplication, coverm.rs:136-146)
+        args._predereplication_genome_files = list(genome_fasta_files)
     separator = parse_separator(args)
 
     genomes_and_contigs = None
@@ -142,10 +208,28 @@ def run_genome(args, device=None):
 
     stream = OutputWriter(args.output_file)
     et = EstimatorsAndTaker(args, stream)
-    et.print_headers("Genome", stream)
+    et.print_headers("Gene\tContig\tGenome" if args.gff else "Genome", stream)
     sources, ff = _build_sources(args)
 
-    if separator is not None or args.single_genome:
+    if args.gff:
+        # genome namer precedence mirrors run_genome (coverm.rs:1554-1580)
+        if args.single_genome:
+            namer = lambda contig: "genome1"
+        elif separator is not None:
+            sep = separator
+
+            def namer(contig, sep=sep):
+                return contig.split(sep, 1)[0] if sep in contig else None
+        else:
+            gc = genomes_and_contigs
+            namer = lambda contig: gc.genome_of_contig(contig)
+        from .genes import GeneDefinitions, gene_coverage
+        defs = GeneDefinitions.read_gff(args.gff, args.gff_feature_type)
+        reads_mapped = gene_coverage(
+            sources, et.taker, et.estimators, defs, namer,
+            print_zero_coverage_genes=not args.no_zeros,
+            flag_filter=ff, threads=args.threads, device=device)
+    elif separator is not None or args.single_genome:
         reads_mapped = genome_coverage_separator(
             sources, separator, et.taker, et.estimators,
             print_zero_coverage_genomes=not args.no_zeros,
@@ -162,6 +246,11 @@ def run_genome(args, device=None):
         et.rpkm_column, et.tpm_column)
     stream.flush()
     return 0
+
+
+def run_make(args):
+    from .mapping import make_bams
+    return make_bams(args)
 
 
 def _completion_flag_map():

@@ -46,9 +46,6 @@ class BamFormatError(Exception):
     pass
 
 
-CRAM_UNSUPPORTED = "CRAM input is not yet supported by coverm_tpu_torch"
-
-
 class TruncatedHeaderError(BamFormatError):
     """Header spans beyond the current buffer (streaming ingestion)."""
 
@@ -321,7 +318,11 @@ def parse_bam_bytes(raw: bytes) -> tuple:
     if raw[:4] == b"BAM\x01":
         return parse_bam_data_raw(raw)
     if raw[:4] == b"CRAM":
-        raise BamFormatError(CRAM_UNSUPPORTED)
+        # the reference reads CRAM through htslib (lib.rs:138-180); here
+        # the native CRAM 3.0 decoder lowers containers to uncompressed
+        # BAM record bytes and the one vectorised parser handles both
+        from .cram import cram_to_bam_data
+        return parse_bam_data_raw(cram_to_bam_data(raw))
     if raw[:2] != b"\x1f\x8b":
         from .sam import sam_text_to_bam_data
         return parse_bam_data_raw(
@@ -542,7 +543,18 @@ class BamStreamReader:
         with open(self.path, "rb") as f:
             magic = f.read(4)
         if magic == b"CRAM":
-            raise BamFormatError(CRAM_UNSUPPORTED)
+            # containerwise CRAM decode: each yielded segment is
+            # uncompressed-BAM bytes, so _run()'s header parse /
+            # contig-boundary cutting applies unchanged
+            from .cram import iter_bam_segments
+            import mmap
+            with open(self.path, "rb") as f:
+                mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+                try:
+                    yield from iter_bam_segments(mm)
+                finally:
+                    mm.close()
+            return
         from . import native
         if native.get_lib() is not None:
             mm = np.memmap(self.path, np.uint8, mode="r")

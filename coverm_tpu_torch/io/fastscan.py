@@ -34,8 +34,8 @@ import os
 import numpy as np
 
 from . import native
-from .bam import (CRAM_UNSUPPORTED, BamFormatError, BamStreamReader,
-                  TruncatedHeaderError, _parse_header, check_stuck_zero)
+from .bam import (BamFormatError, BamStreamReader, TruncatedHeaderError,
+                  _parse_header, check_stuck_zero)
 
 # Virtual headroom ahead of each segment's inflate output for the
 # straddling-record carry (np.empty leaves it unmapped until touched, so
@@ -61,13 +61,15 @@ def fused_available() -> bool:
 
 
 class FusedScanStream:
-    """Lazy segment stream over a BGZF BAM with an eagerly parsed header.
+    """Lazy segment stream over a BGZF BAM (or CRAM) with an eagerly
+    parsed header.
 
     scan_any routes this payload through scan_sample_fused when the
     fused native engine applies; otherwise (COVERM_TPU_FUSED=0)
     iterating it yields plain contig-disjoint RecordBatches via
-    BamStreamReader, byte-identical to the classic path.  CRAM input is
-    not supported by this package yet."""
+    BamStreamReader, byte-identical to the classic path.  The CRAM plan
+    holds an mmap and an open file; close() releases them (the fused
+    scan does so when it has read the last slice)."""
 
     def __init__(self, path: str, target_bytes: int | None = None):
         self.path = path
@@ -78,6 +80,7 @@ class FusedScanStream:
         self.header = None
         self._gen = None
         self._first = None
+        self._cram = None
 
     # ---- classic fallback ----
     def batches(self):
@@ -93,14 +96,15 @@ class FusedScanStream:
         """Parse the header; on the native-BGZF path only the leading
         blocks inflate (geometrically grown until the header fits) and
         the remainder is planned as raw block-table groups for the
-        one-call fused ingest (ct_ingest_scan)."""
+        one-call fused ingest (ct_ingest_scan); on the CRAM path the
+        container body offset is planned for per-slice stats decoding
+        (ct_cram_stats_slice)."""
         import struct
 
         self._plan = None
-        with open(self.path, "rb") as f:
-            if f.read(4) == b"CRAM":
-                raise BamFormatError(CRAM_UNSUPPORTED)
         if self._open_bgzf_plan():
+            return self.header
+        if self._open_cram_plan():
             return self.header
         self._gen = self._segments_raw()
         acc = None
@@ -152,10 +156,61 @@ class FusedScanStream:
         self._plan = (mm, off, csz, usz, buf[hdr_end:], j)
         return True
 
+    def _open_cram_plan(self) -> bool:
+        """CRAM direct-stats plan: slices decode straight into block/stat
+        arrays (ct_cram_stats_slice) — no BAM byte materialisation, no
+        re-scan.  COVERM_TPU_CRAM_STATS=0 forces the legacy
+        BAM-materialising route (kept as oracle/fallback)."""
+        with open(self.path, "rb") as f:
+            if f.read(4) != b"CRAM":
+                return False
+        if os.environ.get("COVERM_TPU_CRAM_STATS", "1") == "0":
+            return False
+        if os.environ.get("COVERM_TPU_NATIVE_CRAM", "1") == "0":
+            return False
+        lib = native.get_lib()
+        if lib is None or not hasattr(lib, "ct_cram_stats_slice"):
+            return False
+        import mmap
+        import struct
+        import zlib
+
+        from .cram import (CramFormatError, bam_header_bytes_from_sam_text,
+                           read_cram_header_text)
+        f = open(self.path, "rb")
+        mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+        try:
+            sam_text, body_off = read_cram_header_text(mm)
+            hdr_bytes = bam_header_bytes_from_sam_text(sam_text)
+            self.header, _ = _parse_header(
+                np.frombuffer(hdr_bytes, np.uint8))
+        except (IndexError, struct.error, zlib.error, EOFError, KeyError,
+                ValueError, UnicodeDecodeError) as e:
+            mm.close()
+            f.close()
+            raise CramFormatError(
+                f"Truncated or corrupt CRAM file ({e}); if the file is a "
+                "newer CRAM minor version re-encode it, e.g.: samtools "
+                "view -C --output-fmt cram,version=3.0 in.cram") from e
+        except Exception:
+            mm.close()
+            f.close()
+            raise
+        self._cram = (mm, body_off, f)
+        return True
+
+    def close(self):
+        """Release the CRAM plan's mmap and file (idempotent)."""
+        if self._cram is not None:
+            mm, _off, f = self._cram
+            self._cram = None
+            mm.close()
+            f.close()
+
     def raw_buffers(self):
         """(buffer, data_lo, data_hi) triples; records start at data_lo
         of the first yield (the header is already consumed).  Only used
-        when no ingest plan exists (no-native fallback)."""
+        when no ingest plan exists (CRAM / no-native fallback)."""
         if self.header is None:
             self.open()
         assert self._plan is None
@@ -163,6 +218,20 @@ class FusedScanStream:
         yield from self._gen
 
     def _segments_raw(self):
+        with open(self.path, "rb") as f:
+            magic = f.read(4)
+        if magic == b"CRAM":
+            from .cram import iter_bam_segments
+            import mmap
+            with open(self.path, "rb") as f:
+                mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+                try:
+                    for seg in iter_bam_segments(mm):
+                        arr = np.frombuffer(seg, dtype=np.uint8)
+                        yield arr, 0, arr.size
+                finally:
+                    mm.close()
+            return
         if native.get_lib() is not None:
             mm = np.memmap(self.path, np.uint8, mode="r")
             tables = native.bgzf_scan(mm)
@@ -198,6 +267,68 @@ class FusedScanStream:
             if pend:
                 arr = np.frombuffer(b"".join(pend), np.uint8)
                 yield arr, 0, arr.size
+
+
+def _cram_slice_blocks(stream, stats, skip_mask, req_mask):
+    """Per-slice (btid, bstart, bend, seg_counts) via the native direct
+    stats decoder, falling back to the python record model + stats_scan
+    for any slice the native decoder rejects (identical outcome either
+    way: the python path raises CramFormatError loudly on real
+    corruption).  Block decompression rides the prefetch thread.  The
+    stream's CRAM plan is closed when the slices end, on error too."""
+    import struct
+    import zlib
+
+    from ..prefetch import prefetch_iter
+    from .cram import (CramFormatError, _bam_record_bytes,
+                       decode_slice_python, iter_cram_slice_blocks,
+                       parse_compression_header)
+
+    mm, body_off, _f = stream._cram
+    comp_cache = (None, None)
+    slices = prefetch_iter(iter_cram_slice_blocks(mm, body_off,
+                                                  lazy_skippable=True))
+    try:
+        for comp_block, sh_block, sl, core_data, ext_items in slices:
+            res = native.cram_stats_slice(comp_block.data, sh_block.data,
+                                          core_data, ext_items, stats,
+                                          skip_mask, req_mask)
+            if res is not None:
+                yield res
+                continue
+            # python fallback for this slice; the cache holds the block
+            # object itself so identity stays valid.  Size-only streams
+            # decompress here after all — the fallback reads them.
+            ext_items = [(cid, d.materialize() if hasattr(d, "rsize")
+                          else d) for cid, d in ext_items]
+            comp = comp_cache[1] if comp_cache[0] is comp_block else None
+            if comp is None:
+                comp = parse_compression_header(comp_block.data)
+                comp_cache = (comp_block, comp)
+            recs = decode_slice_python(comp, sl, core_data, ext_items)
+            part = bytearray()
+            for r in recs:
+                part += _bam_record_bytes(r)
+            res2 = native.stats_scan(
+                np.frombuffer(bytes(part), np.uint8), 0, stats,
+                skip_mask, req_mask)
+            if res2 is None:
+                raise RuntimeError("native fused scan unavailable")
+            yield res2[0], res2[1], res2[2], res2[3]
+    except (IndexError, struct.error, zlib.error, EOFError, KeyError,
+            ValueError, UnicodeDecodeError) as e:
+        # same wrap as iter_cram_containers: malformed container bytes
+        # (or stats-layer rejects such as an out-of-range tid) surface
+        # through the CLI's fail-fast `Error:` path; CramFormatError
+        # itself passes through untouched.
+        raise CramFormatError(
+            f"Truncated or corrupt CRAM file ({e}); if the file is a "
+            "newer CRAM minor version re-encode it, e.g.: samtools view "
+            "-C --output-fmt cram,version=3.0 in.cram") from e
+    finally:
+        # join the decode thread before the mmap under it goes
+        slices.close()
+        stream.close()
 
 
 def scan_sample_fused(header, stream: FusedScanStream, layout, flag_filter,
@@ -240,6 +371,10 @@ def scan_sample_fused(header, stream: FusedScanStream, layout, flag_filter,
 
     def seg_blocks():
         """Yield (btid, bstart, bend) per segment, updating `stats`."""
+        if getattr(stream, "_cram", None) is not None:
+            yield from _cram_slice_blocks(stream, stats, skip_mask,
+                                          req_mask)
+            return
         if getattr(stream, "_plan", None) is not None:
             # one-call fused ingest per raw block-table group: inflate,
             # chain and scan overlap inside the native call; the
@@ -293,9 +428,10 @@ def scan_sample_fused(header, stream: FusedScanStream, layout, flag_filter,
 
     def iter_segments():
         gen = seg_blocks()
-        if getattr(stream, "_plan", None) is not None:
-            # overlap the next native ingest with this segment's
-            # dispatch prep (bincount/delta-encode/pack + h2d)
+        if getattr(stream, "_plan", None) is not None or \
+                getattr(stream, "_cram", None) is not None:
+            # overlap the next native ingest / slice decode with this
+            # segment's dispatch prep (bincount/delta-encode/pack + h2d)
             gen = prefetch_iter(gen)
         try:
             yield from gen

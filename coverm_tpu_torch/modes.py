@@ -12,7 +12,7 @@ from __future__ import annotations
 import logging
 import os
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 
@@ -60,6 +60,7 @@ class BamFileSource:
 
     path: str
     stoit_name: str = None
+    _stream: object = field(default=None, init=False, repr=False)
 
     def __post_init__(self):
         if self.stoit_name is None:
@@ -77,19 +78,25 @@ class BamFileSource:
     def read(self):
         with open(self.path, "rb") as f:
             magic = f.read(4)
-        # BGZF BAM streams above the threshold; big SAM text /
-        # uncompressed BAM fall back to whole-file decode (no streamable
-        # framing).  CRAM input raises BamFormatError on either route.
-        if (magic[:2] == b"\x1f\x8b"
+        # CRAM always streams: the per-slice direct-stats decoder
+        # (io/fastscan._cram_slice_blocks) beats whole-file BAM
+        # materialisation at EVERY size.  BGZF BAM streams above the
+        # threshold; big SAM text / uncompressed BAM fall back to
+        # whole-file decode (no streamable framing).
+        if magic == b"CRAM" or (
+                magic[:2] == b"\x1f\x8b"
                 and os.path.getsize(self.path) >= STREAM_THRESHOLD_BYTES):
             from .io.fastscan import FusedScanStream
-            stream = FusedScanStream(self.path)
-            return stream.open(), stream
+            self._stream = FusedScanStream(self.path)
+            return self._stream.open(), self._stream
         r = BamReader(self.path)
         return r.header, r.batch
 
     def finish(self):
-        pass
+        # a CRAM plan that no fused scan consumed still holds its file
+        if self._stream is not None:
+            self._stream.close()
+            self._stream = None
 
 
 def _entity_stats(scan: SampleScan, layout: ReferenceLayout, observed_tids,

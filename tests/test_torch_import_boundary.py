@@ -74,7 +74,7 @@ CHECK = """
 import sys
 from coverm_tpu_torch.cli import main
 rc = main(["contig", "-b", sys.argv[1], "-m", "mean", "trimmed_mean",
-           "covered_fraction"])
+           "covered_fraction"] + sys.argv[2:])
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "coverm_tpu")
              or m.startswith(("jax.", "jaxlib.", "coverm_tpu.")))
@@ -100,6 +100,32 @@ def test_cli_run_loads_no_jax(tmp_path, threshold):
     assert proc.returncode == 0, proc.stderr
     assert "RC 0 LOADED []" in proc.stdout, proc.stdout + proc.stderr
     assert proc.stdout.startswith("Contig\tx Mean")
+
+
+@pytest.mark.parametrize("route", ["cram", "gff"])
+def test_cram_and_gff_runs_load_no_jax(tmp_path, route):
+    from coverm_tpu_torch.io.cram import sam_to_cram_bytes
+    sam = ["@SQ\tSN:c0\tLN:3000", "@SQ\tSN:c1\tLN:2000"]
+    sam += [f"r{j}\t0\tc{j // 100}\t{1 + (j % 100) * 17}\t60\t100M"
+            f"\t*\t0\t0\t{'A' * 100}\t*\tNM:i:1" for j in range(200)]
+    if route == "cram":
+        path, extra = str(tmp_path / "x.cram"), []
+        with open(path, "wb") as f:
+            f.write(sam_to_cram_bytes(iter(sam), records_per_slice=64))
+    else:
+        path = _bam(str(tmp_path / "x.bam"))
+        gff = tmp_path / "g.gff"
+        gff.write_text("c0\tt\tgene\t1\t900\t.\t+\t.\tID=a\n"
+                       "c1\tt\tgene\t300\t1200\t.\t+\t.\tID=b\n")
+        extra = ["--gff", str(gff)]
+    proc = subprocess.run(
+        [sys.executable, "-c", CHECK, path, *extra], cwd=REPO,
+        capture_output=True, text=True, timeout=300,
+        env=_env(COVERM_TPU_TORCH_DEVICE="cpu"))
+    assert proc.returncode == 0, proc.stderr
+    assert "RC 0 LOADED []" in proc.stdout, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("Gene\tContig\tx Mean" if extra
+                                  else "Contig\tx Mean")
 
 
 def test_chip_smoke_alone_fails_and_prints_no_result(tmp_path):
@@ -140,13 +166,12 @@ def test_cli_without_a_card_exits_with_an_error(tmp_path):
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["contig", "-b", "{bam}", "--gff", "x.gff"], "--gff"),
-    (["contig", "-b", "{bam}", "--sharded"], "--sharded"),
-    (["contig", "-r", "ref.fna", "-1", "r1.fq"],
-     "mapping from reads (give -b sorted BAM files)"),
+    (["filter", "-b", "{bam}", "-o", "out.bam"], "the filter subcommand"),
+    (["cluster", "-f", "{bam}"], "the cluster subcommand"),
+    (["makedb", "-r", "ref.fna", "-o", "db"], "the makedb subcommand"),
     (["contig", "-b", "{bam}", "--profile-dir", "p"], "--profile-dir"),
-    (["make", "-r", "ref.fna", "-1", "r1.fq", "-o", "out"],
-     "the make subcommand"),
+    (["genome", "-f", "{bam}", "-b", "{bam}", "--max-contamination", "5"],
+     "the CheckM quality filter"),
 ])
 def test_routes_outside_the_slice_exit_clearly(tmp_path, argv, what):
     from coverm_tpu_torch.cli import main

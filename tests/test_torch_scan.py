@@ -191,8 +191,13 @@ def test_errors_match_jax(tmp_path, kind):
 
 
 def test_cram_is_refused(tmp_path):
+    """A corrupt CRAM is refused with the JAX package's error."""
+    from coverm_tpu.io.bam import BamFormatError as JBamFormatError
     path = tmp_path / "x.cram"
     path.write_bytes(b"CRAM\x03\x00" + bytes(64))
-    with pytest.raises(BamFormatError, match="not yet supported by "
-                                             "coverm_tpu_torch"):
+    with pytest.raises(BamFormatError) as got:
         FusedScanStream(str(path)).open()
+    with pytest.raises(JBamFormatError) as want:
+        JFused(str(path)).open()
+    assert str(got.value) == str(want.value)
+    assert str(got.value).startswith("Truncated or corrupt CRAM file")
