@@ -37,13 +37,32 @@ Phases, in order; any failure exits non-zero:
      900 bp gene every 1,000 bp (32,000 genes, every tenth overlapping
      the next, a few on contigs the header lacks): TSV equal to the CPU's;
   8. `genome --sharded -s '~'` over two read-name-sorted paired shard
-     BAMs (8 contigs x 100 kbp at 20x): TSV equal to the CPU's.
+     BAMs (8 contigs x 100 kbp at 20x): TSV equal to the CPU's;
+  9. `genome -f g*.fna --dereplicate --dereplication-cluster-method
+     sketch` with the CheckM filter: four genome FASTAs from a seed (gB a
+     copy of gA with 0.5% of its bases changed, so the two form one
+     cluster), a CheckM tab table with `--min-completeness` dropping gD,
+     and a BAM of 8 contigs x 100 kbp at 20x over their contigs: TSV and
+     representative list equal to the CPU's;
+ 10. `--profile-dir` on phase 5's genome command: TSV equal to phase 5's,
+     and a torch.profiler trace in the directory that names the kernel
+     (`sweep_scan_kernel`);
+ 11. `filter --min-read-percent-identity 99` on phase 5's BAM (its
+     standard error line must show some reads kept and some dropped),
+     then `contig -b filtered.bam` on the card: TSV equal to the CPU's;
+ 12. the dense engine, `ops.depth.compute_depth_stats`, on the card over
+     phase 4's blocks (32 x 1 Mbp, ~4.27 M reads): every int64 field and
+     the histogram equal to the numpy oracle; timed with CUDA events,
+     and its device busy time read from torch.profiler over one call.
 
-Phases 4 to 8 each run their command once to warm up (recording the
+Phases 4 to 11 each run their command once to warm up (recording the
 kernel's inputs and the engine's batches), then once with the kernel's
 launch count set to 0 just before and read just after: it must equal the
-number of engine batches and be above 0. Mapping from reads is not driven
-here: it needs a mapper binary (the CPU tests use tests/fake_mapper.py).
+number of engine batches and be above 0. Mapping from reads and `makedb`
+are not driven here: they need a mapper binary, which this script does
+not assume. `cluster` runs on the host only and needs no card. The CPU
+tests hold all three against the JAX package (with tests/fake_mapper.py
+and fake skani and fastANI executables).
 
 Prints the card line, then one {"kernels": [...]} JSON line (with the
 launch count of every path), then the {"ok": true, "device": {...}}
@@ -294,6 +313,125 @@ def same_as_cpu(label, argv, tsv_gpu, work, rows):
         raise SystemExit(f"{label} TSV does not have {rows} rows")
 
 
+def phase_derep(work, dev):
+    """Phase 9: genome --dereplicate with the CheckM filter. Returns the
+    kernel's launches and largest error."""
+    from coverm_tpu_torch.synth import write_genome_fastas, write_sorted_bam
+    genomes = {g: [f"{g}_c{2 * i + k}" for k in (0, 1)]
+               for i, g in enumerate(("gA", "gB", "gC", "gD"))}
+    paths = write_genome_fastas(work, genomes, copies={"gB": "gA"})
+    bam = os.path.join(work, "derep.bam")
+    write_sorted_bam(bam, n_contigs=8, contig_len=100_000, seed=4,
+                     names=[c for cs in genomes.values() for c in cs])
+    checkm = os.path.join(work, "checkm.tsv")
+    with open(checkm, "w") as f:
+        f.write("Bin Id\tCompleteness\tContamination\n"
+                "gA\t92.0\t1.0\ngB\t97.0\t0.5\ngC\t88.0\t2.0\n"
+                "gD\t35.0\t1.0\n")
+    reps = os.path.join(work, "reps.txt")
+    argv = ["genome", "-f", *paths, "-b", bam, "--dereplicate",
+            "--dereplication-cluster-method", "sketch",
+            "--dereplication-output-representative-list", reps,
+            "--checkm-tab-table", checkm, "--min-completeness", "50",
+            "-m", *METHODS]
+    tsv, _, launches, _, err = drive("derep", argv, work, dev)
+    with open(reps) as f:
+        reps_gpu = f.read()
+    if reps_gpu.split() != [paths[1], paths[2]]:
+        raise SystemExit(f"derep: representatives {reps_gpu.split()}")
+    same_as_cpu("derep", argv, tsv, work, 2)
+    with open(reps) as f:
+        if f.read() != reps_gpu:
+            raise SystemExit("derep: representatives differ from the CPU's")
+    log(f"[derep] representatives {reps_gpu.split()}")
+    return launches, err
+
+
+def phase_profile(gargv, g_tsv, work, dev):
+    """Phase 10: --profile-dir on phase 5's genome command. Returns the
+    kernel's launches and largest error."""
+    trace_dir = os.path.join(work, "profile")
+    argv = gargv + ["--profile-dir", trace_dir]
+    tsv, _, launches, _, err = drive("profile", argv, work, dev)
+    if tsv != g_tsv:
+        raise SystemExit("--profile-dir changed the genome TSV")
+    traces = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+    for name in traces:
+        with open(os.path.join(trace_dir, name)) as f:
+            if "sweep_scan_kernel" not in f.read():
+                raise SystemExit(f"trace {name} does not name the kernel")
+    if not traces:
+        raise SystemExit("--profile-dir wrote no trace")
+    log(f"[profile] {len(traces)} traces name sweep_scan_kernel")
+    return launches, err
+
+
+def phase_filter(gbam, work, dev):
+    """Phase 11: filter on the host, then contig over its output on the
+    card. Returns the kernel's launches and largest error."""
+    import io
+    from coverm_tpu_torch.cli import main as cli_main
+    out = os.path.join(work, "filtered.bam")
+    said = io.StringIO()
+    with contextlib.redirect_stderr(said):
+        rc = cli_main(["filter", "-b", gbam, "-o", out,
+                       "--min-read-percent-identity", "99"])
+    line = said.getvalue().strip().splitlines()[-1]
+    kept, total = (int(w) for w in line.split() if w.isdigit())
+    if rc != 0 or not 0 < kept < total:
+        raise SystemExit(f"filter: {line!r}")
+    argv = ["contig", "-b", out, "-m", *METHODS]
+    tsv, _, launches, _, err = drive("filter_contig", argv, work, dev)
+    same_as_cpu("filter_contig", argv, tsv, work, 8)
+    log(f"[filter] {line}")
+    return launches, err
+
+
+def phase_dense(lengths, truth, dev):
+    """Phase 12: the dense engine at the bench size against the numpy
+    oracle; returns its median milliseconds a call (CUDA events), the
+    device's busy milliseconds in one call (torch.profiler) and the
+    layout's chunk count."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from coverm_tpu_torch.ops.depth import (ReferenceLayout,
+                                            compute_depth_stats,
+                                            compute_depth_stats_numpy)
+    from coverm_tpu_torch.timing import event_ms
+    layout = ReferenceLayout.build(lengths, EE)
+
+    def run():
+        return compute_depth_stats(layout, *truth, need_hist=True,
+                                   trim=TRIM, device=dev)
+    got = run()
+    want = compute_depth_stats_numpy(layout, *truth, need_hist=True,
+                                     trim=TRIM)
+    check_stats("dense", got, want)
+    W = max(got.hist.shape[1], want.hist.shape[1])
+    pad = [np.pad(h, ((0, 0), (0, W - h.shape[1]))) for h in
+           (got.hist, want.hist)]
+    if not np.array_equal(*pad):
+        raise SystemExit("dense: histogram differs from the numpy oracle")
+    ms = event_ms(run, 5)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    by_kernel = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[e.name[:60]] = (by_kernel.get(e.name[:60], 0.0)
+                                      + e.time_range.elapsed_us() / 1e3)
+    device_ms = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:4]
+    log(f"[dense] {truth[0].size} blocks over {len(layout.chunks)} chunks "
+        f"of {layout.P} positions: {ms:.3f} ms a call (CUDA events), "
+        f"device busy {device_ms:.3f} ms of one profiled call; top "
+        f"{json.dumps(top)}")
+    return ms, device_ms, len(layout.chunks)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -465,6 +603,30 @@ def main():
         same_as_cpu("sharded", sargv, tsv_sh, work, 4)
         log(f"[sharded] {n_pairs} pairs over {len(shards)} shards")
         phase_s["sharded"] = time.perf_counter() - t0
+
+        # ---- 9. genome --dereplicate with the CheckM filter
+        t0 = time.perf_counter()
+        launches_by_path["genome_dereplicate"], d_err = phase_derep(work,
+                                                                    dev)
+        phase_s["derep"] = time.perf_counter() - t0
+
+        # ---- 10. --profile-dir on phase 5's command
+        t0 = time.perf_counter()
+        launches_by_path["profile_dir"], p_err = phase_profile(
+            gargv, g_gpu, work, dev)
+        phase_s["profile"] = time.perf_counter() - t0
+
+        # ---- 11. filter, then contig over its output
+        t0 = time.perf_counter()
+        launches_by_path["filter_contig"], fc_err = phase_filter(gbam, work,
+                                                                 dev)
+        phase_s["filter"] = time.perf_counter() - t0
+
+        # ---- 12. the dense engine at the bench size
+        t0 = time.perf_counter()
+        dense_ms, dense_device_ms, dense_chunks = phase_dense(lengths, truth,
+                                                              dev)
+        phase_s["dense"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"[phases] seconds: {json.dumps(phase_s)}")
@@ -477,7 +639,8 @@ def main():
         "replaces": "coverm_tpu/ops/pallas_sweep.py:107",
         "launches": launches,
         "launches_by_path": launches_by_path,
-        "max_abs_err": max(err, g_err, c_err, f_err, s_err),
+        "max_abs_err": max(err, g_err, c_err, f_err, s_err, d_err, p_err,
+                           fc_err),
         "ms": kernel_ms,
         "kernel_ms": kernel_ms,
         "device_ms": device_ms,
@@ -494,6 +657,9 @@ def main():
         "cram_decode_inclusive_reads_per_s": n_reads / cram_wall,
         "gff_decode_inclusive_reads_per_s": n_reads / gff_wall,
         "gff_genes": n_genes,
+        "dense_engine_ms": dense_ms,
+        "dense_engine_device_ms": dense_device_ms,
+        "dense_engine_chunks": dense_chunks,
         "phase_s": phase_s,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -254,8 +254,9 @@ def add_coverage_args(p, genome_mode: bool):
     # observability (SURVEY.md §5: profiling hooks are first-class here,
     # unlike the reference which has only log levels)
     p.add_argument("--profile-dir", default=None, metavar="DIR",
-                   help="Write a JAX/XLA profiler trace (viewable with "
-                        "xprof/tensorboard) for the coverage run to DIR")
+                   help="Write a torch.profiler trace of the coverage run "
+                        "(host and CUDA activities; viewable in "
+                        "chrome://tracing, Perfetto or TensorBoard) to DIR")
 
 
 def add_dereplication_args(p, prefix=""):
@@ -753,6 +754,18 @@ def filter_params_from_args(args) -> FilterParams:
     )
 
 
+def _profiler(trace_dir, device):
+    """torch.profiler over the run, host and (on the card) device
+    activities, writing a Chrome/TensorBoard trace into trace_dir."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    return torch.profiler.profile(
+        activities=acts,
+        on_trace_ready=torch.profiler.tensorboard_trace_handler(trace_dir))
+
+
 def main(argv=None, device=None):
     """The CLI. `device` (default: default_device(), so the card unless
     COVERM_TPU_TORCH_DEVICE=cpu) is where the coverage engine runs."""
@@ -787,12 +800,6 @@ def main(argv=None, device=None):
     from .device import resolve_device
     from .io.bam import BamFormatError
     from .scan import BamSortingError, MissingNMTagError
-    if args.subcommand in ("filter", "cluster", "makedb"):
-        commands.unsupported(f"the {args.subcommand} subcommand")
-    if args.subcommand == "shell-completion":
-        return commands.run_shell_completion(args)
-    if getattr(args, "profile_dir", None):
-        commands.unsupported("--profile-dir")
     if args.subcommand in ("contig", "genome"):
         try:
             device = resolve_device(device)
@@ -800,12 +807,23 @@ def main(argv=None, device=None):
             print(f"Error: {e}", file=sys.stderr)
             raise SystemExit(1)
     try:
-        if args.subcommand == "contig":
-            return commands.run_contig(args, device)
-        if args.subcommand == "genome":
-            return commands.run_genome(args, device)
+        if args.subcommand in ("contig", "genome"):
+            run = (commands.run_contig if args.subcommand == "contig"
+                   else commands.run_genome)
+            if args.profile_dir:
+                with _profiler(args.profile_dir, device):
+                    return run(args, device)
+            return run(args, device)
+        if args.subcommand == "filter":
+            return commands.run_filter(args)
         if args.subcommand == "make":  # mapping and BAM writing only
             return commands.run_make(args)
+        if args.subcommand == "cluster":
+            return commands.run_cluster(args)
+        if args.subcommand == "makedb":
+            return commands.run_makedb(args)
+        if args.subcommand == "shell-completion":
+            return commands.run_shell_completion(args)
     except (BamSortingError, MissingNMTagError, BamFormatError,
             ValueError) as e:
         # fail-fast with the reference's message on stderr

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import os
+import sys
 
 from . import CONCATENATED_FASTA_FILE_SEPARATOR
 from .cli import (EstimatorsAndTaker, filter_params_from_args,
@@ -14,12 +15,6 @@ from .modes import (BamFileSource, contig_coverage, genome_coverage_named,
                     genome_coverage_separator)
 from .readfilter import FilterParams
 from .takers import OutputWriter
-
-
-def unsupported(what: str):
-    """Exit for a route this package does not run yet."""
-    raise SystemExit(f"Error: {what} is not yet supported by "
-                     "coverm_tpu_torch")
 
 
 class FilteredBamFileSource(BamFileSource):
@@ -180,17 +175,53 @@ def parse_separator(args):
     return CONCATENATED_FASTA_FILE_SEPARATOR
 
 
+def checkm_filter_genomes(args, genome_fasta_files):
+    """CheckM quality pre-filter (resolve_and_checkm_filter_genomes,
+    coverm.rs:1143-1189)."""
+    from .derep import resolve_quality
+    from .genome_parsing import genome_name_from_path
+    min_comp = getattr(args, "min_completeness", None)
+    max_cont = getattr(args, "max_contamination", None)
+    if min_comp is None and max_cont is None:
+        return genome_fasta_files
+    quality = resolve_quality(args, genome_fasta_files,
+                              threads=getattr(args, "threads", 1))
+    if not quality:
+        raise SystemExit(
+            "You must provide a CheckM tab table, CheckM2 quality report, "
+            "genome info file, or use --run-checkm2 to use "
+            "--min-completeness or --max-contamination")
+    out = []
+    for g in genome_fasta_files:
+        q = quality.get(genome_name_from_path(g))
+        if q is None:
+            raise SystemExit(
+                f"Genome {g} has no entry in the provided quality table")
+        if min_comp is not None and q.completeness < min_comp:
+            continue
+        if max_cont is not None and q.contamination > max_cont:
+            continue
+        out.append(g)
+    if not out:
+        raise SystemExit(
+            "All genomes were removed by the quality filter, so none remain "
+            "to be mapped to")
+    return out
+
+
 def run_genome(args, device=None):
     genome_fasta_files = parse_list_of_genome_fasta_files(args)
     if genome_fasta_files:
-        if (getattr(args, "min_completeness", None) is not None
-                or getattr(args, "max_contamination", None) is not None):
-            unsupported("the CheckM quality filter")
-        if getattr(args, "dereplicate", False):
-            unsupported("--dereplicate")
+        genome_fasta_files = checkm_filter_genomes(args, genome_fasta_files)
         # deshard exclusion uses the PRE-dereplication genome set
         # (genomes_and_contigs_option_predereplication, coverm.rs:136-146)
         args._predereplication_genome_files = list(genome_fasta_files)
+        if getattr(args, "dereplicate", False):
+            from .derep import dereplicate
+            genome_fasta_files = dereplicate(args, genome_fasta_files)
+            args.genome_fasta_files = genome_fasta_files
+            args.genome_fasta_directory = None
+            args.genome_fasta_list = None
     separator = parse_separator(args)
 
     genomes_and_contigs = None
@@ -248,9 +279,100 @@ def run_genome(args, device=None):
     return 0
 
 
+def run_filter(args):
+    """`coverm filter`: rewrite BAMs keeping only passing alignments
+    (coverm.rs:408-472)."""
+    if len(args.bam_files) != len(args.output_bam_files):
+        raise SystemExit(
+            "The number of input BAM files must be the same as the number "
+            "output")
+    fp = filter_params_from_args(args)
+    ff = flag_filter_from_args(args)
+    from .filter_stream import stream_filter_bam
+    for in_path, out_path in zip(args.bam_files, args.output_bam_files):
+        # reference semantics: filter_out=true is the normal mode, --inverse
+        # flips it (coverm.rs:453 passes !inverse).  Streaming rewrite —
+        # memory bounded by segment size, multi-GB headers copied through
+        # in chunks (test_cmdline.rs:4212-4369).
+        tmp = None
+        orig_path = in_path
+        with open(in_path, "rb") as f:
+            magic = f.read(4)
+        if magic == b"CRAM":
+            # htslib reads CRAM transparently and `filter` writes BAM
+            # out (lib.rs:138-180); lower CRAM containerwise to an
+            # uncompressed BAM spool, then stream-filter that
+            import mmap
+            import tempfile
+            from .io import bgzf
+            from .io.cram import iter_bam_segments
+            tmp = tempfile.NamedTemporaryFile(suffix=".bam", delete=False)
+            try:
+                with open(in_path, "rb") as f:
+                    mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+                    try:
+                        # require_seq: rewriting records needs real bases;
+                        # fail loudly rather than emit all-'N' sequences
+                        for seg in iter_bam_segments(mm, require_seq=True):
+                            for o in range(0, len(seg), 0xFF00):
+                                tmp.write(bgzf.compress_block(
+                                    bytes(seg[o:o + 0xFF00]), 1))
+                    finally:
+                        mm.close()
+                tmp.write(bgzf.BGZF_EOF)
+                tmp.close()
+            except BaseException:
+                tmp.close()
+                os.unlink(tmp.name)
+                raise
+            in_path = tmp.name
+        try:
+            kept, total = stream_filter_bam(in_path, out_path, fp, ff,
+                                            inverse=args.inverse)
+        finally:
+            if tmp is not None:
+                os.unlink(tmp.name)
+        print(
+            f"In sample '{os.path.basename(orig_path)}', found "
+            f"{kept} reads passing filter out of {total} total",
+            file=sys.stderr)
+    return 0
+
+
 def run_make(args):
     from .mapping import make_bams
     return make_bams(args)
+
+
+def run_makedb(args):
+    from .mapping import makedb
+    return makedb(args)
+
+
+def run_cluster(args):
+    """`coverm cluster` (coverm.rs:921-927 via the galah bridge)."""
+    from .derep import dereplicate
+    genome_fasta_files = parse_list_of_genome_fasta_files(args)
+    if not genome_fasta_files:
+        raise SystemExit("cluster requires genome FASTA files (-f/-d)")
+    genome_fasta_files = checkm_filter_genomes(args, genome_fasta_files)
+    args.dereplication_reference_genomes = getattr(
+        args, "reference_genomes", None)
+    args.dereplication_ani = args.ani
+    args.dereplication_prethreshold_ani = args.prethreshold_ani
+    args.dereplication_quality_formula = args.quality_formula
+    args.dereplication_output_cluster_definition = args.output_cluster_definition
+    args.dereplication_output_representative_list = args.output_representative_list
+    args.dereplication_output_representative_fasta_directory = (
+        args.output_representative_fasta_directory)
+    reps = dereplicate(args, genome_fasta_files)
+    print(f"Found {len(reps)} cluster representatives", file=sys.stderr)
+    if not (args.output_cluster_definition or args.output_representative_list
+            or args.output_representative_fasta_directory
+            or args.output_representative_fasta_directory_copy):
+        for r in reps:
+            print(r)
+    return 0
 
 
 def _completion_flag_map():

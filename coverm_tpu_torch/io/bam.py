@@ -238,7 +238,7 @@ def _parse_header(data):
         for i in range(n_ref):
             (l_name,) = struct.unpack_from("<i", data, off)
             off += 4
-            names.append(data[off : off + l_name - 1].decode())
+            names.append(bytes(data[off: off + l_name - 1]).decode())
             off += l_name
             (lens[i],) = struct.unpack_from("<I", data, off)
             off += 4

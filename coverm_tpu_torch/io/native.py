@@ -1,12 +1,13 @@
 """ctypes binding for the native C++ BAM ingestion library.
 
-Compiles lazily with the in-tree Makefile on first use (falling back to
-the pure-python path when no toolchain is available).
+The library is compiled with the in-tree Makefile on first use. Set
+COVERM_TPU_NO_NATIVE=1 to run the pure-python path instead.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
 import threading
@@ -14,35 +15,62 @@ import threading
 import numpy as np
 
 _lib = None
+_error = None
 _lock = threading.Lock()
-_tried = False
 
-_NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "native")
-_SO_PATH = os.path.abspath(os.path.join(_NATIVE_DIR, "libcovermio.so"))
+_NATIVE_DIR = os.path.abspath(
+    os.path.join(os.path.dirname(__file__), "..", "native"))
+_SO_PATH = os.path.join(_NATIVE_DIR, "libcovermio.so")
+
+
+def _build_and_load():
+    """make, then load, holding an exclusive lock on a file beside the
+    library: processes that start together build it once, and the
+    Makefile moves a finished library into place, so none loads a
+    partial one."""
+    with open(_SO_PATH + ".lock", "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            # make is a no-op when the .so is newer than the source
+            proc = subprocess.run(["make", "-C", _NATIVE_DIR],
+                                  capture_output=True, text=True,
+                                  timeout=600)
+            built, said = proc.returncode == 0, proc.stdout + proc.stderr
+        except (OSError, subprocess.TimeoutExpired) as e:
+            built, said = False, str(e)
+        try:
+            lib = ctypes.CDLL(_SO_PATH)
+            if not built:
+                import logging
+                logging.warning("make failed on %s; loading the library "
+                                "already there:\n%s", _NATIVE_DIR, said)
+            return lib
+        except OSError as e:
+            raise RuntimeError(
+                f"the native BAM library {_SO_PATH} did not build or load "
+                f"({e}); set COVERM_TPU_NO_NATIVE=1 to run without it. "
+                f"make said:\n{said}") from None
 
 
 def get_lib():
-    """Return the loaded native library, building it if needed, or None."""
-    global _lib, _tried
-    if _lib is not None or _tried:
+    """Return the loaded native library, building it if needed; None only
+    when COVERM_TPU_NO_NATIVE is set. A build that leaves no loadable
+    library raises RuntimeError with the compiler's message."""
+    global _lib, _error
+    if os.environ.get("COVERM_TPU_NO_NATIVE"):
+        return None
+    if _lib is not None:
         return _lib
     with _lock:
-        if _lib is not None or _tried:
+        if _lib is not None:
             return _lib
-        _tried = True
-        if os.environ.get("COVERM_TPU_NO_NATIVE"):
-            return None
+        if _error is not None:
+            raise _error
         try:
-            # make is a no-op when the .so is newer than the source
-            subprocess.run(["make", "-C", os.path.abspath(_NATIVE_DIR)],
-                           capture_output=True, check=True, timeout=300)
-        except Exception:
-            if not os.path.exists(_SO_PATH):
-                return None
-        try:
-            lib = ctypes.CDLL(_SO_PATH)
-        except OSError:
-            return None
+            lib = _build_and_load()
+        except RuntimeError as e:
+            _error = e
+            raise
         c_i64 = ctypes.c_int64
         c_u8p = ctypes.POINTER(ctypes.c_uint8)
         c_i64p = ctypes.POINTER(ctypes.c_int64)

@@ -1,8 +1,7 @@
 """Mapping orchestration: external mapper subprocess pipelines
-(bam_generator.rs:374-1040, mapping_index_maintenance.rs).
-
+(bam_generator.rs:374-1040, mapping_index_maintenance.rs), and
 `makedb` (persistent indexes, with the CheckM filter and
-dereplication) is not part of this package yet.
+dereplication).
 """
 
 from __future__ import annotations
@@ -17,3 +16,7 @@ def make_bams(args):
     from .pipeline import make_bams as impl
     return impl(args)
 
+
+def makedb(args):
+    from .pipeline import makedb as impl
+    return impl(args)

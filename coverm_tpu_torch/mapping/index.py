@@ -2,13 +2,14 @@
 
 Builds or locates pre-generated mapper indexes, generates the
 concatenated `genome~contig` reference FASTA that makes separator-based
-genome recovery possible.
+genome recovery possible, and implements `makedb`.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import shutil
 import subprocess
 import tempfile
 
@@ -192,3 +193,42 @@ def generate_concatenated_fasta_file(genome_fasta_paths, output_path=None,
                 out.write(f">{new_name}\n{seq}\n")
     return output_path
 
+
+def mapping_program_db_name(mapping_program: str) -> str:
+    """mapping_program_db_name (mapping_index_maintenance.rs:503-522)."""
+    base = {
+        "bwa-mem": "bwa-mem", "bwa-mem2": "bwa-mem2", "minibwa": "minibwa",
+        "strobealign": "strobealign",
+    }.get(mapping_program)
+    if base is None:
+        base = ("minimap2" if mapping_program.startswith("minimap2")
+                else "rammap")
+    return base + "_db"
+
+
+def generate_persistent_index(reference: str, mapping_program: str,
+                              output_directory: str, threads: int = 1) -> str:
+    """makedb: persistent index generation
+    (mapping_index_maintenance.rs:528-589)."""
+    os.makedirs(output_directory, exist_ok=True)
+    db_dir = os.path.join(output_directory,
+                          mapping_program_db_name(mapping_program))
+    os.makedirs(db_dir, exist_ok=True)
+    check_mapper(mapping_program)
+    base = os.path.basename(reference)
+    if mapping_program.startswith("minimap2") or mapping_program.startswith("rammap"):
+        out = os.path.join(db_dir, base + ".mmi")
+        cmd = build_index_command(mapping_program, reference, out)
+    elif mapping_program == "strobealign":
+        # strobealign requires the reference FASTA next to its .sti index
+        out = os.path.join(db_dir, base)
+        shutil.copyfile(reference, out)
+        cmd = f"strobealign --create-index -t {threads} '{out}'"
+    else:
+        out = os.path.join(db_dir, base)
+        cmd = build_index_command(mapping_program, reference, out)
+    res = subprocess.run(["bash", "-c", cmd], capture_output=True, text=True)
+    if res.returncode != 0:
+        raise ExternalToolError(
+            f"Index building command '{cmd}' failed: {res.stderr}")
+    return out

@@ -606,3 +606,30 @@ def make_bams(args):
         index.cleanup()
     return 0
 
+
+def makedb(args):
+    """`coverm makedb` (coverm.rs:725-905)."""
+    from .index import generate_persistent_index
+    if args.reference:
+        refs = list(args.reference)
+    else:
+        from ..commands import (checkm_filter_genomes,
+                                parse_list_of_genome_fasta_files)
+        genome_files = parse_list_of_genome_fasta_files(args)
+        if not genome_files:
+            raise SystemExit("makedb needs -r or genome FASTA files")
+        genome_files = checkm_filter_genomes(args, genome_files)
+        if getattr(args, "dereplicate", False):
+            from ..derep import dereplicate
+            genome_files = dereplicate(args, genome_files)
+        os.makedirs(args.output_directory, exist_ok=True)
+        refs = [generate_concatenated_fasta_file(
+            genome_files, os.path.join(args.output_directory,
+                                       "coverm_concatenated_genomes.fna"))]
+    for ref in refs:
+        out = generate_persistent_index(ref, args.mapper,
+                                        args.output_directory, args.threads)
+        print(f"Generated {args.mapper} database at {out}")
+        print(f"Use it with e.g.: coverm-tpu contig -r {out} "
+              f"-p {args.mapper} -1 reads_1.fq -2 reads_2.fq")
+    return 0

@@ -331,3 +331,35 @@ def write_shard_bams(paths, n_contigs=8, contig_len=100_000, coverage=20,
             w.write(sam_text_to_bam_data(iter(sam)))
             w.close()
     return n_pairs
+
+
+def write_genome_fastas(directory, genomes, contig_len=100_000, seed=3,
+                        copies=None):
+    """One FASTA `<genome>.fna` per entry of `genomes` (name -> its contig
+    names) in `directory`, of random bases drawn from `seed`. A genome
+    named in `copies` (name -> source genome) holds the source's contigs,
+    in order, with 0.5% of their bases changed, so that the two cluster
+    together at the usual ANI thresholds. Returns the paths, in the order
+    of `genomes`."""
+    rng = np.random.default_rng(seed)
+    copies = copies or {}
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    seqs = {g: [rng.integers(0, 4, contig_len, dtype=np.uint8)
+                for _ in names] for g, names in genomes.items()
+            if g not in copies}
+    for g, src in copies.items():
+        seqs[g] = []
+        for codes in seqs[src]:
+            codes = codes.copy()
+            hit = rng.random(codes.size) < 0.005
+            codes[hit] = (codes[hit] + rng.integers(1, 4, int(hit.sum()),
+                                                    dtype=np.uint8)) % 4
+            seqs[g].append(codes)
+    paths = []
+    for g, names in genomes.items():
+        path = os.path.join(directory, f"{g}.fna")
+        with open(path, "wb") as f:
+            for name, codes in zip(names, seqs[g]):
+                f.write(b">%s\n%s\n" % (name.encode(), bases[codes].tobytes()))
+        paths.append(path)
+    return paths

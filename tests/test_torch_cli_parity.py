@@ -8,11 +8,14 @@ definition file and genome FASTA files), dense and sparse output, the
 streamed route (COVERM_TPU_STREAM_THRESHOLD=1) and the whole-file
 route. For the
 unsorted-BAM and missing-NM errors the exit code and the `Error:` line
-on standard error must be equal. Each pair runs its two processes
-side by side.
+on standard error must be equal. With `--profile-dir` the TSV must equal
+the JAX package's and the port's own without the option, and each
+package must write a trace. Each pair runs its two processes side by
+side.
 """
 
 import os
+import re
 import subprocess
 import sys
 
@@ -75,21 +78,67 @@ def data(tmp_path_factory):
     return paths
 
 
-def _run_pair(argv, env_extra):
+def run_both(argvs, env_extra=None, cwds=(REPO, REPO), path_dir=None):
+    """Run `python -m coverm_tpu` and `python -m coverm_tpu_torch` side by
+    side, each with its own argv and working directory, both on the CPU
+    (path_dir first on PATH); [(returncode, stdout, stderr)] in that
+    order."""
     env = dict(os.environ)
     env.update(JAX_PLATFORMS="cpu", COVERM_TPU_PLATFORM="cpu",
                COVERM_TPU_TORCH_DEVICE="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=1")
-    env.update(env_extra)
-    procs = [subprocess.Popen([sys.executable, "-m", pkg] + argv, cwd=REPO,
+               XLA_FLAGS="--xla_force_host_platform_device_count=1",
+               PYTHONPATH=REPO)
+    if path_dir:
+        env["PATH"] = f"{path_dir}:{os.environ['PATH']}"
+    env.update(env_extra or {})
+    procs = [subprocess.Popen([sys.executable, "-m", pkg] + argv, cwd=cwd,
                               env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE)
-             for pkg in ("coverm_tpu", "coverm_tpu_torch")]
+             for pkg, argv, cwd in zip(("coverm_tpu", "coverm_tpu_torch"),
+                                       argvs, cwds)]
     out = []
     for p in procs:
         stdout, stderr = p.communicate(timeout=300)
         out.append((p.returncode, stdout, stderr.decode()))
     return out
+
+
+# standard error lines that are not the program's own: log records with
+# their timestamps, and the notes of the XLA and profiler runtimes
+_NOISE = re.compile(r"^(\[\d{4}-\d\d-\d\dT|[EWI]\d{4} |USDT:|WARNING: All log)")
+
+
+def outcome(result, cwd, traces=()):
+    """(returncode, stdout, message, files) of one run_both result. The
+    message is the last line of standard error when the run failed, else
+    its lines that are neither log records nor runtime notes, with the
+    package's name made common. files maps every path written under cwd
+    to its bytes (None for a directory); a directory named in `traces`
+    (a profiler trace, whose format is each package's own) maps only to
+    whether it holds a file."""
+    rc, stdout, stderr = result
+    lines = [l for l in stderr.splitlines()
+             if l.strip() and not _NOISE.match(l)]
+    message = lines[-1:] if rc != 0 else lines
+    message = [l.replace("coverm_tpu_torch", "coverm_tpu") for l in message]
+    files = {}
+    for root, dirs, names in os.walk(cwd):
+        rel = os.path.relpath(root, cwd)
+        top = rel.split(os.sep)[0]
+        if top in traces:
+            files[top] = files.get(top, False) or bool(names)
+            continue
+        for d in dirs:
+            if os.path.normpath(os.path.join(rel, d)) not in traces:
+                files[os.path.normpath(os.path.join(rel, d))] = None
+        for n in names:
+            with open(os.path.join(root, n), "rb") as f:
+                files[os.path.normpath(os.path.join(rel, n))] = f.read()
+    return rc, stdout, message, files
+
+
+def _run_pair(argv, env_extra):
+    return run_both([argv, argv], env_extra)
 
 
 CASES = {
@@ -150,3 +199,27 @@ def test_errors_equal(data, kind, route):
     assert error_line(err_j), err_j
     assert error_line(err_t) == error_line(err_j)
     assert out_t == out_j
+
+
+@pytest.mark.parametrize("argv", [
+    ["contig", "-b", "{a}", "{b}", "-m", "mean", "trimmed_mean",
+     "covered_fraction"],
+    ["genome", "-s", "~", "-b", "{a}", "-m", "relative_abundance", "mean",
+     "variance"],
+])
+def test_profile_dir_equals_jax_and_the_run_without(data, tmp_path, argv):
+    """--profile-dir: the TSV equals the JAX package's and the port's run
+    without it, and each package writes its trace into the directory."""
+    argv = [a.format(**data) for a in argv]
+    cwds = [tmp_path / "jax", tmp_path / "torch"]
+    for c in cwds:
+        c.mkdir()
+    results = run_both([argv + ["--profile-dir", "p"]] * 2, WHOLE, cwds=cwds)
+    want, got = (outcome(r, c, traces=("p",)) for r, c in zip(results, cwds))
+    assert got == want
+    assert want[0] == 0 and want[3] == {"p": True}
+    traces = [f for f in os.listdir(cwds[1] / "p")
+              if f.endswith(".pt.trace.json")]
+    assert len(traces) == 1
+    plain = run_both([argv, argv], WHOLE)[1]
+    assert plain[0] == 0 and plain[1] == got[1]

@@ -33,6 +33,7 @@ from coverm_tpu_torch.synth import write_cram_twin, write_sorted_bam
 
 from test_torch_cli_parity import STREAMED, WHOLE, _run_pair
 from test_torch_scan import assert_scans_equal
+from test_torch_native_build import jax_native  # noqa: F401
 
 TRIM = (0.1, 0.9)
 EE = 75

@@ -165,19 +165,25 @@ def test_cli_without_a_card_exits_with_an_error(tmp_path):
     assert "Error: coverm_tpu_torch needs a CUDA device" in proc.stderr
 
 
-@pytest.mark.parametrize("argv,what", [
-    (["filter", "-b", "{bam}", "-o", "out.bam"], "the filter subcommand"),
-    (["cluster", "-f", "{bam}"], "the cluster subcommand"),
-    (["makedb", "-r", "ref.fna", "-o", "db"], "the makedb subcommand"),
-    (["contig", "-b", "{bam}", "--profile-dir", "p"], "--profile-dir"),
-    (["genome", "-f", "{bam}", "-b", "{bam}", "--max-contamination", "5"],
-     "the CheckM quality filter"),
+@pytest.mark.parametrize("argv", [
+    ["filter", "-b", "{bam}", "-o", "out.bam"],
+    ["cluster", "-f", "{bam}"],
+    ["makedb", "-r", "ref.fna", "-o", "db"],
+    ["contig", "-b", "{bam}", "--profile-dir", "p"],
+    ["genome", "-f", "{bam}", "-b", "{bam}", "--max-contamination", "5"],
 ])
-def test_routes_outside_the_slice_exit_clearly(tmp_path, argv, what):
-    from coverm_tpu_torch.cli import main
+def test_routes_of_the_third_slice_match_jax(tmp_path, argv):
+    """Routes that once exited as not yet ported: both packages give the
+    same exit status, message, standard output and files."""
+    from test_torch_cli_parity import outcome, run_both
     bam = _bam(str(tmp_path / "x.bam"))
     argv = [a.format(bam=bam) for a in argv]
-    with pytest.raises(SystemExit) as e:
-        main(argv, device="cpu")
-    assert str(e.value) == (f"Error: {what} is not yet supported by "
-                            "coverm_tpu_torch")
+    cwds = [tmp_path / "jax", tmp_path / "torch"]
+    for c in cwds:
+        c.mkdir()
+    results = run_both([argv, argv], cwds=cwds)
+    want, got = (outcome(r, c, traces=("p",))
+                 for r, c in zip(results, cwds))
+    assert got == want
+    if argv[0] in ("filter", "contig"):
+        assert want[0] == 0 and want[3], want

@@ -10,8 +10,9 @@ contig and genome mode from paired, coupled, interleaved and single
 reads, with inline filtering, the BAM caches, the spilled external sort,
 `--sharded` from reads and from name-sorted shard BAMs (in memory and
 streamed, with --exclude-genomes-from-deshard), and strobealign-aemb.
-`make` must write the same records. The routes not yet ported exit with
-a clear error.
+`make` must write the same records. `filter`, `cluster`, `makedb`,
+`--profile-dir`, `--dereplicate` and the CheckM filter give the same
+outcome as the JAX package's.
 """
 
 import os
@@ -22,13 +23,12 @@ import sys
 import numpy as np
 import pytest
 
-from coverm_tpu_torch.cli import main
 from coverm_tpu_torch.io import bgzf
 from coverm_tpu_torch.io.bam import BamReader
 from coverm_tpu_torch.io.sam import sam_text_to_bam_data
 from coverm_tpu_torch.mapping.pipeline import SamStreamConsumer
 
-from test_torch_cli_parity import REPO, STREAMED, WHOLE
+from test_torch_cli_parity import REPO, STREAMED, WHOLE, outcome, run_both
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 READ_LEN = 100
@@ -144,26 +144,6 @@ def write_shards(paths, d, rng, n_pairs=400):
         paths[key] = path
 
 
-def _run_two(argvs, env_extra, path_dir):
-    """Run `python -m coverm_tpu` and `python -m coverm_tpu_torch` side by
-    side, each with its own argv, the fake mappers first on PATH."""
-    env = dict(os.environ)
-    env.update(JAX_PLATFORMS="cpu", COVERM_TPU_PLATFORM="cpu",
-               COVERM_TPU_TORCH_DEVICE="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=1",
-               PATH=f"{path_dir}:{os.environ['PATH']}")
-    env.update(env_extra)
-    procs = [subprocess.Popen([sys.executable, "-m", pkg] + argv, cwd=REPO,
-                              env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE)
-             for pkg, argv in zip(("coverm_tpu", "coverm_tpu_torch"), argvs)]
-    out = []
-    for p in procs:
-        stdout, stderr = p.communicate(timeout=300)
-        out.append((p.returncode, stdout, stderr.decode()))
-    return out
-
-
 SPILL = {"COVERM_TPU_MAPPER_SPILL_BYTES": "2000"}
 CASES = {
     "contig_paired": (
@@ -216,8 +196,8 @@ CASES = {
 def test_stdout_byte_equal(data, case):
     argv, env = CASES[case]
     argv = [a.format(**data) for a in argv]
-    (rc_j, out_j, err_j), (rc_t, out_t, err_t) = _run_two(
-        [argv, argv], env, data["bindir"])
+    (rc_j, out_j, err_j), (rc_t, out_t, err_t) = run_both(
+        [argv, argv], env, path_dir=data["bindir"])
     assert rc_j == 0, err_j
     assert rc_t == 0, err_t
     assert out_j.count(b"\n") >= 2
@@ -246,8 +226,8 @@ def test_bam_caches_equal(data, tmp_path, how):
             extra = ["--cache-unfiltered-bam-files", caches[-1]]
         argvs.append(["contig", "-r", data["ref"], "-1", data["r1"], "-2",
                       data["r2"], "-m", "mean", *extra])
-    (rc_j, out_j, err_j), (rc_t, out_t, err_t) = _run_two(
-        argvs, {}, data["bindir"])
+    (rc_j, out_j, err_j), (rc_t, out_t, err_t) = run_both(
+        argvs, path_dir=data["bindir"])
     assert rc_j == 0, err_j
     assert rc_t == 0, err_t
     assert out_t == out_j
@@ -264,8 +244,8 @@ def test_make_writes_the_same_records(data, tmp_path, discard):
               data["r1"], "-o", str(tmp_path / pkg)]
              + (["--discard-unmapped"] if discard else [])
              for pkg in ("jax", "torch")]
-    (rc_j, _o, err_j), (rc_t, _o2, err_t) = _run_two(argvs, SPILL,
-                                                     data["bindir"])
+    (rc_j, _o, err_j), (rc_t, _o2, err_t) = run_both(
+        argvs, SPILL, path_dir=data["bindir"])
     assert rc_j == 0, err_j
     assert rc_t == 0, err_t
     made = sorted(os.listdir(tmp_path / "jax"))
@@ -302,19 +282,27 @@ def test_spilled_sorter_equals_in_memory(data):
             getattr(mem, f), err_msg=f)
 
 
-@pytest.mark.parametrize("argv,what", [
-    (["filter", "-b", "{s1}", "-o", "out.bam"], "the filter subcommand"),
-    (["cluster", "-f", "{gA}", "{gB}"], "the cluster subcommand"),
-    (["makedb", "-r", "{ref}", "-o", "db"], "the makedb subcommand"),
-    (["contig", "-b", "{s1}", "--profile-dir", "p"], "--profile-dir"),
-    (["genome", "-f", "{gA}", "{gB}", "--single", "{single}",
-      "--dereplicate"], "--dereplicate"),
-    (["genome", "-f", "{gA}", "{gB}", "--single", "{single}",
-      "--min-completeness", "50"], "the CheckM quality filter"),
+@pytest.mark.parametrize("argv", [
+    ["filter", "-b", "{s1}", "-o", "out.bam"],
+    ["cluster", "-f", "{gA}", "{gB}"],
+    ["makedb", "-r", "{ref}", "-o", "db"],
+    ["contig", "-b", "{s1}", "--profile-dir", "p"],
+    ["genome", "-f", "{gA}", "{gB}", "--single", "{single}",
+     "--dereplicate"],
+    ["genome", "-f", "{gA}", "{gB}", "--single", "{single}",
+     "--min-completeness", "50"],
 ])
-def test_routes_not_yet_ported_exit_clearly(data, argv, what):
+def test_routes_of_the_third_slice_match_jax(data, tmp_path, argv):
+    """Routes that once exited as not yet ported, with the fake mappers on
+    PATH: both packages give the same exit status, message, standard
+    output and files."""
     argv = [a.format(**data) for a in argv]
-    with pytest.raises(SystemExit) as e:
-        main(argv, device="cpu")
-    assert str(e.value) == (f"Error: {what} is not yet supported by "
-                            "coverm_tpu_torch")
+    cwds = [tmp_path / "jax", tmp_path / "torch"]
+    for c in cwds:
+        c.mkdir()
+    results = run_both([argv, argv], cwds=cwds, path_dir=data["bindir"])
+    want, got = (outcome(r, c, traces=("p",))
+                 for r, c in zip(results, cwds))
+    assert got == want
+    if argv[0] in ("filter", "makedb"):
+        assert want[0] == 0 and want[3], want

@@ -28,6 +28,8 @@ from coverm_tpu_torch.io.sam import sam_text_to_bam_data
 from coverm_tpu_torch.modes import _dense_hist
 from coverm_tpu_torch.ops.depth import ReferenceLayout
 
+from test_torch_native_build import jax_native  # noqa: F401
+
 BLOCK = 4000   # BGZF block payload bytes: many blocks
 SEG = 8192     # fused segment target: ~2 blocks per segment
 TRIM = (0.1, 0.9)
