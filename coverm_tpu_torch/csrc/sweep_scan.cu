@@ -421,14 +421,20 @@ long long sweep_scan_scratch_words(long long E, int n_seg) {
   return (long long)kStats * n_seg + 1 + tiles;
 }
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success). keys
-// must be 16-byte aligned; per_seg is scratch[0 : 6 * n_seg].
+// Launch on card `device`, on `stream` (a stream of that card); returns
+// the first CUDA error (0 on success). keys must be 16-byte aligned;
+// per_seg is scratch[0 : 6 * n_seg]. The library links its own static
+// runtime, whose current device is its own per thread and 0 until set:
+// the caller names the card, so the memset and the launch run on the
+// card that holds the tensors whatever device torch has made current.
 int sweep_scan_launch(const long long* keys, const int* len_tab, int* depth,
                       int* w_len_all, int* seg, long long* scratch,
                       long long E, int n_seg, int ee, int pad_pos,
-                      void* stream) {
+                      int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(
+  err = cudaMemsetAsync(
       scratch, 0, sizeof(long long) * sweep_scan_scratch_words(E, n_seg), st);
   if (err != cudaSuccess) return (int)err;
   if (E <= 0) return 0;

@@ -449,14 +449,17 @@ def encode_start_deltas(starts, counts, n_blocks):
 
 class _HostCopy:
     """A device->host copy in flight: a non-blocking copy into pinned
-    memory ordered by a CUDA event (a plain view for CPU tensors)."""
+    memory ordered by a CUDA event on the tensor's own card (a plain view
+    for CPU tensors)."""
 
     def __init__(self, t):
         if t.device.type == "cuda":
-            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            self._host.copy_(t, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record()
+            with torch.cuda.device(t.device):
+                self._host = torch.empty(t.shape, dtype=t.dtype,
+                                         pin_memory=True)
+                self._host.copy_(t, non_blocking=True)
+                self._event = torch.cuda.Event()
+                self._event.record(torch.cuda.current_stream(t.device))
         else:
             self._host = t
             self._event = None

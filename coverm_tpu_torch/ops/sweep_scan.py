@@ -62,11 +62,13 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# launches of the CUDA kernel (the plain version does not count)
+# launches of the CUDA kernel (the plain version does not count); threads
+# that launch at once (sample-DP workers, shards) count under _count_lock
 sweep_scan_launches = 0
 
 _lib = None
 _lib_lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -116,7 +118,8 @@ def _load():
             lib.sweep_scan_scratch_words.restype = i64
             lib.sweep_scan_scratch_words.argtypes = [i64, i32]
             lib.sweep_scan_launch.restype = i32
-            lib.sweep_scan_launch.argtypes = [vp] * 6 + [i64, i32, i32, i32, vp]
+            lib.sweep_scan_launch.argtypes = [vp] * 6 + [i64, i32, i32, i32,
+                                                         i32, vp]
             _lib = lib
     return _lib
 
@@ -136,8 +139,9 @@ def _check(key_s, len_tab, n_seg):
 def sweep_scan(key_s, len_tab, n_seg, ee):
     """(depth, w_len_all, seg, per_seg) of sorted event keys.
 
-    CUDA tensors go through the kernel, on the current stream; CPU
-    tensors through the plain version."""
+    CUDA tensors go through the kernel, on the current stream of their
+    card (named to the launch, whatever card is current); CPU tensors
+    through the plain version."""
     global sweep_scan_launches
     n_seg = int(n_seg)
     _check(key_s, len_tab, n_seg)
@@ -160,10 +164,12 @@ def sweep_scan(key_s, len_tab, n_seg, ee):
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.sweep_scan_launch(
         key_s.data_ptr(), len_tab.data_ptr(), *[t.data_ptr() for t in outs],
-        scratch.data_ptr(), E, n_seg, int(ee), PAD_POS, stream)
+        scratch.data_ptr(), E, n_seg, int(ee), PAD_POS, dev.index, stream)
     if err != 0:
-        raise RuntimeError(f"sweep_scan kernel launch failed: CUDA error {err}")
-    sweep_scan_launches += 1
+        raise RuntimeError(f"sweep_scan kernel launch failed on {dev}: "
+                           f"CUDA error {err}")
+    with _count_lock:
+        sweep_scan_launches += 1
     return (*outs, scratch[:6 * n_seg].view(6, n_seg))
 
 

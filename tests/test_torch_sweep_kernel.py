@@ -468,3 +468,61 @@ def test_cuda_kernel_matches_plain_version(name):
     assert K.sweep_scan_launches == before + 1
     for k, (g, w) in enumerate(zip(got, want)):
         assert torch.equal(g, w), K.PER_SEG_ROWS if k == 3 else k
+
+
+def _last_card():
+    """The card the multi-device cases run on: the last one, which on a
+    one-card machine is cuda:0 itself (the case then checks only that the
+    launch names its card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the CUDA kernel has no CPU mode)")
+    return torch.device("cuda", torch.cuda.device_count() - 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["seed2", "empty_contigs"])
+def test_cuda_kernel_on_the_last_card(name):
+    """K1 launches on the card that holds its tensors while cuda:0 stays
+    the current device, and the packed vector's fetch waits on that
+    card's stream."""
+    from coverm_tpu_torch.ops.sweep import _HostCopy
+    dev = _last_card()
+    key, len_tab, n_seg, ee = _keys(name)
+    ins = [torch.from_numpy(a).to(dev) for a in (key, len_tab)]
+    with torch.cuda.device(0):
+        got = K.sweep_scan(*ins, n_seg, ee)
+    want = K.sweep_scan_reference(*ins, n_seg, ee)
+    torch.cuda.synchronize(dev)
+    for g, w in zip(got, want):
+        assert g.device == dev
+        assert torch.equal(g, w)
+    with torch.cuda.device(0):
+        fetched = _HostCopy(got[3]).numpy()
+    np.testing.assert_array_equal(fetched, want[3].cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_launch_count_under_threads():
+    """Eight threads launching at once: the count loses no launch."""
+    import sys
+    import threading
+    dev = _last_card()
+    key, len_tab, n_seg, ee = _keys("seed0")
+    ins = [torch.from_numpy(a).to(dev) for a in (key, len_tab)]
+    K.sweep_scan(*ins, n_seg, ee)  # build and load once
+    before = K.sweep_scan_launches
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(
+            target=lambda: [K.sweep_scan(*ins, n_seg, ee) for _ in range(25)])
+            for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+            assert not t.is_alive()
+    finally:
+        sys.setswitchinterval(old)
+    torch.cuda.synchronize(dev)
+    assert K.sweep_scan_launches == before + 8 * 25
