@@ -53,12 +53,37 @@ Phases, in order; any failure exits non-zero:
  12. the dense engine, `ops.depth.compute_depth_stats`, on the card over
      phase 4's blocks (32 x 1 Mbp, ~4.27 M reads): every int64 field and
      the histogram equal to the numpy oracle; timed with CUDA events,
-     and its device busy time read from torch.profiler over one call.
+     and its device busy time read from torch.profiler over one call;
+ 13. the contig-sharded mesh sweep, `parallel.mesh_sweep.
+     compute_depth_stats_sweep_mesh`, over phase 4's blocks with the
+     trim and the histogram: on four logical shards of cuda:0 (and over
+     every card when there are two or more), one K1 launch a shard, each
+     held against the plain version; the statistics and histogram equal
+     the single-device engine's and the numpy oracle's; then phase 4's
+     contig 0 alone over four shards, which takes the position split;
+     a pass timed on the host clock against the single-device pass;
+ 14. the fused scanner with the mesh depth_fn: `scan.scan_any(...,
+     depth_fn=mesh_depth_fn(...))` on the bench BAM over four logical
+     shards of cuda:0; its DepthStats equal phase 4's oracle;
+ 15. the two-rank job: `python -m coverm_tpu_torch contig -b bench.bam`
+     as two processes under COVERM_TPU_COORDINATOR, _NUM_PROCESSES and
+     _PROCESS_ID. With one card both ranks share it over gloo; with two
+     or more each takes its own and the backend is NCCL. Rank 0's TSV
+     must equal phase 4's and rank 1 must write nothing; each rank
+     checks its own K1 launches against the plain version and reports
+     them with its count;
+ 16. the multi-card CLI routes (COVERM_TPU_MESH=1 on the bench BAM, and
+     sample-DP over two samples of the same contigs: the bench BAM and a
+     5x one from another seed), only with two or more cards; with one,
+     a line says they were not driven, and the kernels line carries
+     "multi_card": false.
 
 Phases 4 to 11 each run their command once to warm up (recording the
 kernel's inputs and the engine's batches), then once with the kernel's
 launch count set to 0 just before and read just after: it must equal the
-number of engine batches and be above 0. Mapping from reads and `makedb`
+number of engine batches and be above 0. They run with COVERM_TPU_MESH=0,
+so that on a machine with several cards they still take the single-card
+engine; phases 13-16 drive the multi-device engines. Mapping from reads and `makedb`
 are not driven here: they need a mapper binary, which this script does
 not assume. `cluster` runs on the host only and needs no card. The CPU
 tests hold all three against the JAX package (with tests/fake_mapper.py
@@ -67,6 +92,14 @@ and fake skani and fastANI executables).
 Prints the card line, then one {"kernels": [...]} JSON line (with the
 launch count of every path), then the {"ok": true, "device": {...}}
 JSON line last.
+
+    python3 chip_smoke.py --multi-card
+
+runs, on a machine with two or more cards, only what exists across
+cards: the build, the bench fixture and the single-card TSV and oracle
+they are held against, then phases 13, 15 and 16 (every card takes a shard, the
+two-rank job takes NCCL), and prints their launches and times as one
+{"multi_card": {...}} JSON line.
 """
 
 import contextlib
@@ -387,17 +420,27 @@ def phase_filter(gbam, work, dev):
     return launches, err
 
 
-def phase_dense(lengths, truth, dev):
+def check_hist(label, got, want):
+    """The histograms (ragged overflow rows folded in) equal, up to
+    trailing zero bins."""
+    from coverm_tpu_torch.modes import _dense_hist
+    a, b = _dense_hist(got), _dense_hist(want)
+    W = max(a.shape[1], b.shape[1])
+    pad = [np.pad(h, ((0, 0), (0, W - h.shape[1]))) for h in (a, b)]
+    if not np.array_equal(*pad):
+        raise SystemExit(f"{label}: histogram differs from the numpy oracle")
+
+
+def phase_dense(lengths, truth, want, dev):
     """Phase 12: the dense engine at the bench size against the numpy
-    oracle; returns its median milliseconds a call (CUDA events), the
-    device's busy milliseconds in one call (torch.profiler) and the
-    layout's chunk count."""
+    oracle `want` (with the histogram); returns its median milliseconds
+    a call (CUDA events), the device's busy milliseconds in one call
+    (torch.profiler) and the layout's chunk count."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from coverm_tpu_torch.ops.depth import (ReferenceLayout,
-                                            compute_depth_stats,
-                                            compute_depth_stats_numpy)
+                                            compute_depth_stats)
     from coverm_tpu_torch.timing import event_ms
     layout = ReferenceLayout.build(lengths, EE)
 
@@ -405,14 +448,8 @@ def phase_dense(lengths, truth, dev):
         return compute_depth_stats(layout, *truth, need_hist=True,
                                    trim=TRIM, device=dev)
     got = run()
-    want = compute_depth_stats_numpy(layout, *truth, need_hist=True,
-                                     trim=TRIM)
     check_stats("dense", got, want)
-    W = max(got.hist.shape[1], want.hist.shape[1])
-    pad = [np.pad(h, ((0, 0), (0, W - h.shape[1]))) for h in
-           (got.hist, want.hist)]
-    if not np.array_equal(*pad):
-        raise SystemExit("dense: histogram differs from the numpy oracle")
+    check_hist("dense", got, want)
     ms = event_ms(run, 5)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -432,6 +469,297 @@ def phase_dense(lengths, truth, dev):
     return ms, device_ms, len(layout.chunks)
 
 
+def wall_ms(fn, reps):
+    """Median host milliseconds of fn() over reps calls after one
+    warm-up, each ending in a synchronize."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def counted(fn):
+    """(fn(), K1 launches during it): the count set to 0 just before and
+    read just after."""
+    import torch
+    from coverm_tpu_torch.ops import sweep_scan as K
+    torch.cuda.synchronize()
+    K.sweep_scan_launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, K.sweep_scan_launches
+
+
+def phase_mesh(lengths, truth, want, dev, card):
+    """Phase 13: the contig-sharded mesh sweep at the bench size, and a
+    heavy contig that takes the position split. Returns the launches of
+    one bench-size pass over four logical shards, the kernel's largest
+    error, and the pass's milliseconds against the single-device pass's
+    (by grid label)."""
+    import torch
+    from coverm_tpu_torch.ops.depth import (ReferenceLayout,
+                                            compute_depth_stats_numpy)
+    from coverm_tpu_torch.ops.sweep import compute_depth_stats_sweep
+    from coverm_tpu_torch.parallel.mesh_sweep import (
+        compute_depth_stats_sweep_mesh, split_heavy_contigs)
+    layout = ReferenceLayout.build(lengths, EE)
+    cuda0 = torch.device("cuda", 0)
+    grids = {"4 logical shards of cuda:0": [[cuda0] * 4]}
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        grids[f"{n_cards} cards"] = [[torch.device("cuda", i)
+                                      for i in range(n_cards)]]
+
+    def single():
+        return compute_depth_stats_sweep(layout, *truth, need_hist=True,
+                                         trim=TRIM, device=dev)
+    ref = single()
+    check_stats("mesh: single-device engine", ref, want)
+    check_hist("mesh: single-device engine", ref, want)
+    single_ms = wall_ms(single, 3)
+    err, timings, first_launches = 0, {}, None
+    for label, grid in grids.items():
+        def run():
+            return compute_depth_stats_sweep_mesh(
+                layout, *truth, need_hist=True, trim=TRIM, mesh=grid)
+        ins = []
+        with kernel_launches(ins):
+            got = run()
+        for lbl, w in (("single-device engine", ref), ("numpy oracle",
+                                                         want)):
+            check_stats(f"mesh over {label} against the {lbl}", got, w)
+            check_hist(f"mesh over {label} against the {lbl}", got, w)
+        _, launches = counted(run)
+        if launches != len(grid[0]) or len(ins) != launches:
+            raise SystemExit(f"mesh over {label}: {launches} K1 launches "
+                             f"for {len(grid[0])} shards")
+        err = max([err] + [check_kernel(f"mesh {label} shard {i}", x)
+                           for i, x in enumerate(ins)])
+        ms = wall_ms(run, 3)
+        timings[label] = ms
+        first_launches = first_launches or launches
+        log(f"[mesh] {truth[0].size} blocks over {label}: {launches} K1 "
+            f"launches (one a shard, one dispatch), {ms:.3f} ms a pass "
+            f"against {single_ms:.3f} ms single-device (host clock, "
+            f"routing included); {card}")
+
+    # the heavy contig: phase 4's contig 0 alone over four shards
+    sel = truth[0] == 0
+    heavy = tuple(a[sel] for a in truth)
+    if split_heavy_contigs(*heavy, 4)[5].tolist() != [0]:
+        raise SystemExit("mesh: contig 0 alone did not take the split")
+    hwant = compute_depth_stats_numpy(layout, *heavy, need_hist=True,
+                                      trim=TRIM)
+    ins = []
+    with kernel_launches(ins):
+        got = compute_depth_stats_sweep_mesh(layout, *heavy, need_hist=True,
+                                             trim=TRIM, mesh=[[cuda0] * 4])
+    check_stats("mesh: split contig 0", got, hwant)
+    check_hist("mesh: split contig 0", got, hwant)
+    if len(ins) != 4:
+        raise SystemExit(f"mesh: split contig 0 launched K1 {len(ins)} "
+                         "times over 4 shards")
+    err = max([err] + [check_kernel(f"mesh split shard {i}", x)
+                       for i, x in enumerate(ins)])
+    log(f"[mesh] contig 0 alone ({heavy[0].size} blocks) position-split "
+        "over 4 shards: statistics and histogram equal the numpy oracle")
+    return first_launches, err, timings, single_ms
+
+
+def phase_fused_mesh(bam, want, argv, dev, card):
+    """Phase 14: the fused scanner dispatching through the mesh
+    depth_fn (four logical shards of cuda:0) on the bench BAM. Returns
+    its K1 launches and the kernel's largest error."""
+    import torch
+    from coverm_tpu_torch.cli import build_parser, flag_filter_from_args
+    from coverm_tpu_torch.io.fastscan import FusedScanStream
+    from coverm_tpu_torch.modes import BamFileSource
+    from coverm_tpu_torch.ops.depth import ReferenceLayout
+    from coverm_tpu_torch.parallel.mesh_sweep import mesh_depth_fn
+    from coverm_tpu_torch.scan import scan_any
+    ff = flag_filter_from_args(build_parser().parse_args(argv))
+    grid = [[torch.device("cuda", 0)] * 4]
+
+    def run():
+        header, payload = BamFileSource(bam).read()
+        if not isinstance(payload, FusedScanStream):
+            raise SystemExit("fused mesh: the bench BAM did not stream")
+        layout = ReferenceLayout.build(header.target_lens, EE)
+        return scan_any(header, payload, layout, ff, need_hist=False,
+                        trim=TRIM, device=dev, depth_fn=mesh_depth_fn(grid))
+    ins = []
+    with kernel_launches(ins):
+        check_stats("fused mesh", run().depth, want)
+    t0 = time.perf_counter()
+    scan, launches = counted(run)
+    wall = time.perf_counter() - t0
+    check_stats("fused mesh", scan.depth, want)
+    if launches != len(ins) or launches == 0 or launches % 4:
+        raise SystemExit(f"fused mesh: {launches} K1 launches, warm-up "
+                         f"{len(ins)}, over 4 shards")
+    err = max(check_kernel(f"fused mesh launch {i}", x)
+              for i, x in enumerate(ins))
+    log(f"[fused mesh] {launches} K1 launches ({launches // 4} dispatches "
+        f"x 4 shards), {wall:.3f} s; DepthStats equal phase 4's; {card}")
+    return launches, err
+
+
+RANK_CHILD = "import sys, chip_smoke; sys.exit(chip_smoke.rank_child())"
+
+
+def rank_child():
+    """One rank of phase 15's job (run as a child process): the CLI on
+    sys.argv[1:] with each K1 launch's inputs recorded; then its launch
+    count and the kernel's largest error against the plain version on
+    those inputs, as a RANK_RESULT JSON line on standard error."""
+    import torch
+    from coverm_tpu_torch.cli import main as cli_main
+    from coverm_tpu_torch.ops import sweep_scan as K
+    ins = []
+    # no CUDA call before cli_main: it sets the rank's card first
+    K.sweep_scan_launches = 0
+    with kernel_launches(ins):
+        rc = cli_main(sys.argv[1:])
+    torch.cuda.synchronize()
+    launches = K.sweep_scan_launches
+    err = max((check_kernel(f"rank launch {i}", x)
+               for i, x in enumerate(ins)), default=0)
+    log("RANK_RESULT " + json.dumps({"launches": launches,
+                                     "recorded": len(ins),
+                                     "max_abs_err": err}))
+    return rc
+
+
+def phase_multiprocess(bam, tsv_want, work, card):
+    """Phase 15: `python -m coverm_tpu_torch contig` (through rank_child)
+    as a two-rank job. Returns the launches of each rank, the kernel's
+    largest error, the backend and the job's wall seconds."""
+    import socket
+    import subprocess
+
+    import torch
+    n_cards = torch.cuda.device_count()
+    backend = "nccl" if n_cards >= 2 else "gloo"
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("COVERM_TPU")}
+    env.update(PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p),
+        COVERM_TPU_COORDINATOR=f"localhost:{port}",
+        COVERM_TPU_NUM_PROCESSES="2")
+    outs = [os.path.join(work, f"rank{r}.tsv") for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", RANK_CHILD, "contig", "-b", bam, "-m",
+         *METHODS, "-o", outs[r]], cwd=root, text=True,
+        env={**env, "COVERM_TPU_PROCESS_ID": str(r)},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE) for r in range(2)]
+    try:
+        results = [p.communicate(timeout=400) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    launches, err = [], 0
+    for r, (p, (_, stderr)) in enumerate(zip(procs, results)):
+        if p.returncode != 0:
+            raise SystemExit(f"multiprocess: rank {r} exited {p.returncode}:"
+                             f"\n{stderr[-4000:]}")
+        said = [l for l in stderr.splitlines()
+                if f"distributed: rank {r} of 2 over {backend}" in l]
+        got = [json.loads(l.split("RANK_RESULT ", 1)[1])
+               for l in stderr.splitlines() if "RANK_RESULT " in l]
+        if not said or len(got) != 1:
+            raise SystemExit(f"multiprocess: rank {r} did not report "
+                             f"{backend} and its launches:\n{stderr[-4000:]}")
+        res = got[0]
+        if res["launches"] <= 0 or res["launches"] != res["recorded"]:
+            raise SystemExit(f"multiprocess: rank {r} launches {res}")
+        launches.append(res["launches"])
+        err = max(err, res["max_abs_err"])
+        log(f"[multiprocess] {said[0].strip()}; {res['launches']} K1 "
+            f"launches, max_abs_err {res['max_abs_err']}")
+    if err != 0:
+        raise SystemExit(f"multiprocess: K1 disagrees with its plain "
+                         f"version: max_abs_err={err}")
+    with open(outs[0], "rb") as f:
+        if f.read() != tsv_want:
+            raise SystemExit("multiprocess: rank 0's TSV differs from "
+                             "phase 4's")
+    if os.path.exists(outs[1]):
+        raise SystemExit("multiprocess: rank 1 wrote its -o file")
+    log(f"[multiprocess] two ranks over {backend} on {n_cards} card(s): "
+        f"{wall:.3f} s wall (process start-up included), launches by rank "
+        f"{launches}; rank 0's TSV equals phase 4's; {card}")
+    return launches, err, backend, wall
+
+
+def phase_multi_card(bam, tsv_want, work, dev, card):
+    """Phase 16, with two or more cards: COVERM_TPU_MESH=1 on the bench
+    BAM (its TSV equals phase 4's), and sample-DP over two samples, the
+    bench BAM and a second sample of the same contigs at 5x from another
+    seed (its TSV equals the plain path's on the CPU, which scans one
+    sample after the other). Returns the launches and wall seconds of
+    each, the wall seconds of each sample alone on one card
+    (COVERM_TPU_MESH=0), and the kernel's largest error."""
+    import torch
+    from coverm_tpu_torch.synth import write_sorted_bam
+    bam2 = os.path.join(work, "bench_5x.bam")
+    write_sorted_bam(bam2, coverage=5, seed=2)
+    argv = ["contig", "-b", bam, "-m", *METHODS]
+    two = ["contig", "-b", bam, bam2, "-m", *METHODS]
+    out = {}
+    for name, cmd in (("bench", argv),
+                      ("bench_5x", ["contig", "-b", bam2, "-m", *METHODS])):
+        run_cli(cmd, os.path.join(work, f"{name}_warm.tsv"), dev)
+        t0 = time.perf_counter()
+        run_cli(cmd, os.path.join(work, f"{name}.tsv"), dev)
+        out[f"{name}_one_card_wall_s"] = time.perf_counter() - t0
+    single = run_cli(two, os.path.join(work, "two_cpu.tsv"),
+                     torch.device("cpu"))
+    err = 0
+    try:
+        for label, mode, cmd, want in (("mesh_cli", "1", argv, tsv_want),
+                                       ("sample_dp", "auto", two, single)):
+            os.environ["COVERM_TPU_MESH"] = mode
+            ins = []
+            with kernel_launches(ins):
+                run_cli(cmd, os.path.join(work, f"{label}_warm.tsv"), dev)
+            t0 = time.perf_counter()
+            tsv, launches = counted(lambda: run_cli(
+                cmd, os.path.join(work, f"{label}.tsv"), dev))
+            wall = time.perf_counter() - t0
+            if tsv != want:
+                raise SystemExit(f"{label}: TSV differs on "
+                                 f"COVERM_TPU_MESH={mode}")
+            if launches <= 0 or launches != len(ins):
+                raise SystemExit(f"{label}: {launches} K1 launches, "
+                                 f"warm-up {len(ins)}")
+            err = max([err] + [check_kernel(f"{label} launch {i}", x)
+                               for i, x in enumerate(ins)])
+            out[label] = launches
+            out[f"{label}_wall_s"] = wall
+            log(f"[multi-card] {label}: {launches} K1 launches, {wall:.3f} "
+                f"s wall; TSV equal; {card}")
+    finally:
+        os.environ["COVERM_TPU_MESH"] = "0"
+    log(f"[multi-card] one card, COVERM_TPU_MESH=0: bench "
+        f"{out['bench_one_card_wall_s']:.3f} s, bench_5x "
+        f"{out['bench_5x_one_card_wall_s']:.3f} s; {card}")
+    return out, err
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -440,7 +768,8 @@ def main():
         return 1
     from coverm_tpu_torch.io import native
     from coverm_tpu_torch.ops import sweep_scan as K
-    from coverm_tpu_torch.ops.depth import ReferenceLayout
+    from coverm_tpu_torch.ops.depth import (ReferenceLayout,
+                                            compute_depth_stats_numpy)
     from coverm_tpu_torch.ops.sweep import (DepthAccumulator,
                                             compute_depth_stats_sweep)
     from coverm_tpu_torch.synth import (write_cram_twin, write_gene_gff,
@@ -469,6 +798,10 @@ def main():
 
     phase_s = {"build": build_s}
     launches_by_path = {}
+    # phases 4-12 drive the single-card paths, which count one launch an
+    # engine batch, whatever the number of cards; phases 13-16 take the
+    # multi-device ones explicitly
+    os.environ["COVERM_TPU_MESH"] = "0"
     work = tempfile.mkdtemp(prefix="coverm_tpu_torch_smoke_")
     try:
         # fixture: the bench.py workload
@@ -624,9 +957,45 @@ def main():
 
         # ---- 12. the dense engine at the bench size
         t0 = time.perf_counter()
-        dense_ms, dense_device_ms, dense_chunks = phase_dense(lengths, truth,
-                                                              dev)
+        want_hist = compute_depth_stats_numpy(layout, *truth, need_hist=True,
+                                              trim=TRIM)
+        dense_ms, dense_device_ms, dense_chunks = phase_dense(
+            lengths, truth, want_hist, dev)
         phase_s["dense"] = time.perf_counter() - t0
+
+        # ---- 13. the mesh sweep at the bench size
+        t0 = time.perf_counter()
+        (launches_by_path["mesh_sweep"], m_err, mesh_ms,
+         mesh_single_ms) = phase_mesh(lengths, truth, want_hist, dev, card)
+        del want_hist
+        phase_s["mesh"] = time.perf_counter() - t0
+
+        # ---- 14. the fused scanner with the mesh depth_fn
+        t0 = time.perf_counter()
+        launches_by_path["fused_mesh"], fm_err = phase_fused_mesh(
+            bam, want, argv, dev, card)
+        phase_s["fused_mesh"] = time.perf_counter() - t0
+
+        # ---- 15. the two-rank job
+        t0 = time.perf_counter()
+        mp_launches, mp_err, mp_backend, mp_wall = phase_multiprocess(
+            bam, tsv_gpu, work, card)
+        launches_by_path["multiprocess"] = sum(mp_launches)
+        phase_s["multiprocess"] = time.perf_counter() - t0
+
+        # ---- 16. the multi-card CLI routes
+        t0 = time.perf_counter()
+        multi_card = torch.cuda.device_count() >= 2
+        mc_err = 0
+        if multi_card:
+            mc, mc_err = phase_multi_card(bam, tsv_gpu, work, dev, card)
+            launches_by_path.update(
+                {k: v for k, v in mc.items() if not k.endswith("_s")})
+        else:
+            log("[multi-card] not driven: this machine has one card, and "
+                "COVERM_TPU_MESH=1 over cards and sample-DP over device "
+                "groups need two or more")
+        phase_s["multi_card"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"[phases] seconds: {json.dumps(phase_s)}")
@@ -640,7 +1009,8 @@ def main():
         "launches": launches,
         "launches_by_path": launches_by_path,
         "max_abs_err": max(err, g_err, c_err, f_err, s_err, d_err, p_err,
-                           fc_err),
+                           fc_err, m_err, fm_err, mp_err, mc_err),
+        "multi_card": multi_card,
         "ms": kernel_ms,
         "kernel_ms": kernel_ms,
         "device_ms": device_ms,
@@ -660,6 +1030,11 @@ def main():
         "dense_engine_ms": dense_ms,
         "dense_engine_device_ms": dense_device_ms,
         "dense_engine_chunks": dense_chunks,
+        "mesh_pass_ms": mesh_ms,
+        "mesh_single_device_pass_ms": mesh_single_ms,
+        "multiprocess_backend": mp_backend,
+        "multiprocess_launches_by_rank": mp_launches,
+        "multiprocess_wall_s": mp_wall,
         "phase_s": phase_s,
     }]}))
     print(json.dumps({"ok": True, "device": {
@@ -667,5 +1042,55 @@ def main():
     return 0
 
 
+def multi_card_main():
+    """`chip_smoke.py --multi-card`: phases 13, 15 and 16 alone, with
+    what they are held against, on two or more cards."""
+    import torch
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        log("chip_smoke --multi-card: needs two or more NVIDIA cards")
+        return 1
+    from coverm_tpu_torch.io import native
+    from coverm_tpu_torch.ops import sweep_scan as K
+    from coverm_tpu_torch.ops.depth import (ReferenceLayout,
+                                            compute_depth_stats_numpy)
+    from coverm_tpu_torch.synth import write_sorted_bam
+    from coverm_tpu_torch.timing import card_line
+    dev = torch.device("cuda")
+    card = card_line()
+    log(f"[card] {torch.cuda.device_count()} x {card}")
+    K.build()
+    if native.get_lib() is None:
+        raise SystemExit("native BAM ingest library did not build")
+    os.environ["COVERM_TPU_MESH"] = "0"
+    work = tempfile.mkdtemp(prefix="coverm_tpu_torch_smoke_")
+    try:
+        bam = os.path.join(work, "bench.bam")
+        tids, starts, lengths = write_sorted_bam(bam)
+        truth = blocks_of(tids, starts, lengths, 150)
+        tsv = run_cli(["contig", "-b", bam, "-m", *METHODS],
+                      os.path.join(work, "single.tsv"), dev)
+        want = compute_depth_stats_numpy(ReferenceLayout.build(lengths, EE),
+                                         *truth, need_hist=True, trim=TRIM)
+        m_launches, m_err, mesh_ms, single_ms = phase_mesh(
+            lengths, truth, want, dev, card)
+        mp_launches, mp_err, backend, mp_wall = phase_multiprocess(
+            bam, tsv, work, card)
+        mc, mc_err = phase_multi_card(bam, tsv, work, dev, card)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    err = max(m_err, mp_err, mc_err)
+    if err != 0:
+        raise SystemExit(f"K1 disagrees with its plain version: {err}")
+    print(card)
+    print(json.dumps({"multi_card": {
+        "cards": torch.cuda.device_count(), "mesh_sweep": m_launches,
+        "mesh_pass_ms": mesh_ms, "mesh_single_device_pass_ms": single_ms,
+        "multiprocess_backend": backend,
+        "multiprocess_launches_by_rank": mp_launches,
+        "multiprocess_wall_s": mp_wall, **mc, "max_abs_err": err}}))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(multi_card_main() if sys.argv[1:] == ["--multi-card"]
+             else main())

@@ -796,6 +796,13 @@ def main(argv=None, device=None):
         level=level,
         format="[%(asctime)s %(levelname)s] %(message)s",
         datefmt="%Y-%m-%dT%H:%M:%S")
+    # Multi-process start-up, before any CUDA work (and after the logging
+    # set-up, which reports the backend): `coverm_tpu_torch ...` launched
+    # once per rank under COVERM_TPU_COORDINATOR, _NUM_PROCESSES and
+    # _PROCESS_ID becomes one job (parallel/distributed.py). The
+    # reference is strictly single-host.
+    from .parallel.distributed import maybe_initialize
+    maybe_initialize()
     from . import commands
     from .device import resolve_device
     from .io.bam import BamFormatError

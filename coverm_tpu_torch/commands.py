@@ -117,8 +117,15 @@ def _genome_exclusion_of(args):
     return GenomesAndContigsExclusionFilter(gc, genomes)
 
 
+def _output_stream(args):
+    """The -o stream; os.devnull on the non-zero ranks of a
+    multi-process job, whose statistics equal rank 0's."""
+    from .parallel.distributed import suppress_output
+    return OutputWriter(os.devnull if suppress_output() else args.output_file)
+
+
 def run_contig(args, device=None):
-    stream = OutputWriter(args.output_file)
+    stream = _output_stream(args)
     et = EstimatorsAndTaker(args, stream)
     entry_type = "Gene\tContig" if args.gff else "Contig"
     et.print_headers(entry_type, stream)
@@ -237,7 +244,7 @@ def run_genome(args, device=None):
             "Either a separator (-s) or path(s) to genome FASTA files "
             "(with -d or -f) must be given")
 
-    stream = OutputWriter(args.output_file)
+    stream = _output_stream(args)
     et = EstimatorsAndTaker(args, stream)
     et.print_headers("Gene\tContig\tGenome" if args.gff else "Genome", stream)
     sources, ff = _build_sources(args)

@@ -5,6 +5,14 @@ for it, by passing `device="cpu"` to a library function or by setting
 `COVERM_TPU_TORCH_DEVICE=cpu` (the counterpart of the JAX package's
 `COVERM_TPU_PLATFORM`). Without a card and without that request the
 package raises: it never runs on the CPU quietly.
+
+The multi-device engines (parallel/, modes._scanned) take their devices
+from `local_devices()`: every card, or, when the CPU was asked for,
+`COVERM_TPU_TORCH_CPU_DEVICES` (default 1) logical CPU devices. That
+variable is the counterpart of XLA's
+`--xla_force_host_platform_device_count`, with which the JAX package's
+tests run its mesh on the CPU; it exists so that the multi-device routes
+can be tested without cards.
 """
 
 from __future__ import annotations
@@ -14,6 +22,7 @@ import os
 import torch
 
 ENV_VAR = "COVERM_TPU_TORCH_DEVICE"
+CPU_DEVICES_VAR = "COVERM_TPU_TORCH_CPU_DEVICES"
 
 
 def default_device() -> torch.device:
@@ -40,3 +49,22 @@ def resolve_device(device=None) -> torch.device:
             "coverm_tpu_torch was asked for a CUDA device and none is "
             "available")
     return device
+
+
+def local_devices(device=None) -> list[torch.device]:
+    """The devices this process runs shards on, of the type of
+    resolve_device(device): every card (in a multi-process job only the
+    rank's own, `cuda:(rank % device_count)`), or
+    COVERM_TPU_TORCH_CPU_DEVICES copies of `cpu`."""
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        n = int(os.environ.get(CPU_DEVICES_VAR, "1"))
+        if n < 1:
+            raise ValueError(f"{CPU_DEVICES_VAR} must be at least 1, not {n}")
+        return [torch.device("cpu")] * n
+    if dev.type != "cuda":
+        raise ValueError(f"no local devices of type {dev.type}")
+    count = torch.cuda.device_count()
+    if torch.distributed.is_available() and torch.distributed.is_initialized():
+        return [torch.device("cuda", torch.distributed.get_rank() % count)]
+    return [torch.device("cuda", i) for i in range(count)]

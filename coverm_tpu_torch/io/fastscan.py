@@ -332,13 +332,18 @@ def _cram_slice_blocks(stream, stats, skip_mask, req_mask):
 
 
 def scan_sample_fused(header, stream: FusedScanStream, layout, flag_filter,
-                      need_hist: bool, trim=None, device=None):
+                      need_hist: bool, trim=None, device=None,
+                      depth_fn=None):
     """One-native-pass streaming scan -> SampleScan.
 
     Matches scan.scan_sample_batches semantically (same SampleScan, same
     error messages) while doing all per-record work in C++.  Each
     contig-closed group of blocks is dispatched to the sweep on `device`
-    as soon as it closes, folding into one on-device accumulator."""
+    as soon as it closes, folding into one on-device accumulator; or,
+    when depth_fn is given (a deferred-capable engine: the contig-sharded
+    mesh sweep or the multi-process sweep), through depth_fn, deferred
+    and without the accumulator, so multi-device runs get the same fused
+    host ingestion."""
     from ..prefetch import prefetch_iter
     from ..scan import (BamSortingError, MissingNMTagError, SampleScan,
                         merge_depth_stats)
@@ -363,6 +368,10 @@ def scan_sample_fused(header, stream: FusedScanStream, layout, flag_filter,
             bs = np.concatenate([c[1] for c in chunks])
             be = np.concatenate([c[2] for c in chunks])
         if bt.size == 0:
+            return
+        if depth_fn is not None:
+            pendings.append(depth_fn(layout, bt, bs, be, need_hist=need_hist,
+                                     trim=trim, deferred=True))
             return
         pendings.append(compute_depth_stats_sweep(
             layout, bt, bs, be, need_hist=need_hist, trim=trim,

@@ -9,12 +9,14 @@ including zero-coverage back-fill and per-sample ReadsMapped accounting.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import time
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from .estimators import (EntityStats, Estimator, PileupCountsEstimator,
                          TrimmedMeanEstimator, any_needs_hist,
@@ -175,18 +177,97 @@ def _batch_stats(scan: SampleScan, layout: ReferenceLayout):
     )
 
 
+def _mesh_depth_fn(devices):
+    """Contig-sharded mesh engine over `devices` when there are two or
+    more, or the multi-process engine in a torch.distributed job.
+
+    COVERM_TPU_MESH=0 disables (single-device sweep everywhere); the
+    default routes single-sample scans through the (dp=1, shard) mesh —
+    bit-equal to the single-device engine (each contig lives wholly on
+    one shard, or a position-split contig's histogram is exact)."""
+    from .parallel.distributed import is_multiprocess
+
+    if os.environ.get("COVERM_TPU_MESH", "auto") == "0":
+        return None
+    if is_multiprocess():
+        # one global mesh over every rank's devices
+        from .parallel.distributed import make_global_mesh, multihost_depth_fn
+        mesh = make_global_mesh()
+        logger.info("engine: contig-sharded over %d shard(s) of %d "
+                    "process(es)", len(mesh[0]),
+                    len({r for r, _ in mesh[0]}))
+        return multihost_depth_fn(mesh)
+    if len(devices) < 2:
+        return None
+    from .parallel.mesh_sweep import mesh_depth_fn
+    logger.info("engine: contig-sharded over %d shard(s)", len(devices))
+    return mesh_depth_fn([list(devices)])
+
+
 def _scanned(sources, ee, flag_filter, need_hist, trim=None, device=None):
-    """Yield (source, header, layout, scan, scan_seconds) in source order,
-    scanning every sample on `device` (default: default_device()); the
-    prefetch pipeline overlaps sample i+1's host decode with sample i's
-    scan."""
+    """Yield (source, header, layout, scan, scan_seconds) in source order.
+
+    The devices are local_devices() of `device`'s type (default:
+    default_device()). With one of them, every sample scans on it and
+    the prefetch pipeline overlaps sample i+1's host decode with sample
+    i's scan. With several devices and several samples, samples are
+    scanned CONCURRENTLY, one per device group (sample data parallelism —
+    the multi-device analogue of the reference's serial multi-sample
+    loop, SURVEY.md §2.3), each contig-sharded over its group; only the
+    small per-contig statistics are retained. With a single sample (or
+    COVERM_TPU_MESH=1, or in a multi-process job), each scan is instead
+    sharded over ALL devices by contig (parallel/mesh_sweep.py).
+    """
+    from .device import local_devices
+    from .parallel.distributed import is_multiprocess
+
     device = resolve_device(device)
-    for s, (header, payload) in _prefetched(sources):
+    devs = local_devices(device)
+    workers = min(len(sources), len(devs))
+    if os.environ.get("COVERM_TPU_MESH", "auto") == "1":
+        workers = 1  # force every scan through the mesh engine
+    if is_multiprocess():
+        workers = 1  # every rank scans every sample on the global mesh
+    if workers <= 1:
+        depth_fn = _mesh_depth_fn(devs)
+        for s, (header, payload) in _prefetched(sources):
+            t0 = time.perf_counter()
+            layout = ReferenceLayout.build(header.target_lens, ee)
+            scan = scan_any(header, payload, layout, flag_filter, need_hist,
+                            trim=trim, device=devs[0], depth_fn=depth_fn)
+            yield s, header, layout, scan, time.perf_counter() - t0
+        return
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    from .parallel.mesh_sweep import mesh_depth_fn
+
+    # Sample data parallelism composed with reference sharding: devices
+    # are partitioned into one group per concurrent sample, and each
+    # sample's scan contig-shards over its whole group — with 8 devices
+    # and 2 samples, each sample runs on 4 devices instead of leaving 6
+    # idle.
+    groups = [devs[i::workers] for i in range(workers)]
+    logger.info(
+        "engine: sample-DP over %d device group(s) of %s (contig-sharded "
+        "within each group)", workers, [len(g) for g in groups])
+
+    def job(i, s):
         t0 = time.perf_counter()
-        layout = ReferenceLayout.build(header.target_lens, ee)
-        scan = scan_any(header, payload, layout, flag_filter, need_hist,
-                        trim=trim, device=device)
-        yield s, header, layout, scan, time.perf_counter() - t0
+        group = groups[i % workers]
+        depth_fn = mesh_depth_fn([group]) if len(group) > 1 else None
+        with (torch.cuda.device(group[0]) if group[0].type == "cuda"
+              else contextlib.nullcontext()):
+            header, payload = s.read()
+            layout = ReferenceLayout.build(header.target_lens, ee)
+            scan = scan_any(header, payload, layout, flag_filter, need_hist,
+                            trim=trim, device=group[0], depth_fn=depth_fn)
+        return s, header, layout, scan, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=workers) as ex:
+        futures = [ex.submit(job, i, s) for i, s in enumerate(sources)]
+        for f in futures:
+            yield f.result()
 
 
 def _genome_batch_stats(scan: SampleScan, layout: ReferenceLayout,

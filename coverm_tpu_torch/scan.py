@@ -57,9 +57,13 @@ class SampleScan:
 
 def scan_sample(header: BamHeader, batch: RecordBatch, layout: ReferenceLayout,
                 flag_filter: FlagFilter, need_hist: bool, trim=None,
-                device=None, deferred=False, acc=None) -> SampleScan:
+                device=None, deferred=False, acc=None,
+                depth_fn=None) -> SampleScan:
     """One batch -> SampleScan. With deferred=True the depth field is a
-    pending device result (see ops/sweep.compute_depth_stats_sweep)."""
+    pending device result (see ops/sweep.compute_depth_stats_sweep).
+    depth_fn (default: the single-device sweep on `device`, folding into
+    `acc`) replaces the depth engine, for example with a multi-device
+    one (parallel/), which then ignores `device` and `acc`."""
     C = header.n_ref
     passes = flag_filter.passes(batch)
     mapped = ~batch.is_unmapped()
@@ -84,10 +88,15 @@ def scan_sample(header: BamHeader, batch: RecordBatch, layout: ReferenceLayout,
     # coverage blocks from every passing mapped record
     buse = use[batch.block_read]
     btids = batch.tid[batch.block_read[buse]]
-    depth = compute_depth_stats_sweep(
-        layout, btids, batch.block_start[buse], batch.block_end[buse],
-        need_hist=need_hist, trim=trim, deferred=deferred, acc=acc,
-        device=device)
+    if depth_fn is None:
+        depth = compute_depth_stats_sweep(
+            layout, btids, batch.block_start[buse], batch.block_end[buse],
+            need_hist=need_hist, trim=trim, deferred=deferred, acc=acc,
+            device=device)
+    else:
+        depth = depth_fn(layout, btids, batch.block_start[buse],
+                         batch.block_end[buse], need_hist=need_hist,
+                         trim=trim, deferred=deferred)
 
     observed = np.zeros(C, dtype=bool)
     observed[np.unique(tids)] = True
@@ -197,7 +206,7 @@ def _empty_scan(header: BamHeader, need_hist: bool = False,
 
 def scan_sample_batches(header: BamHeader, batches, layout: ReferenceLayout,
                         flag_filter: FlagFilter, need_hist: bool, trim=None,
-                        device=None) -> SampleScan:
+                        device=None, depth_fn=None) -> SampleScan:
     """Streaming scan, fully pipelined: per-batch depth calls are
     dispatched DEFERRED (the device result stays in flight), so batch
     i+1's host decode (prefetch thread) and h2d overlap batch i's device
@@ -218,7 +227,7 @@ def scan_sample_batches(header: BamHeader, batches, layout: ReferenceLayout,
             last_max_tid = max(last_max_tid, int(mapped_tids.max()))
         scans.append(scan_sample(header, batch, layout, flag_filter,
                                  need_hist, trim=trim, device=device,
-                                 deferred=True, acc=acc))
+                                 deferred=True, acc=acc, depth_fn=depth_fn))
     acc.start_fetch()  # the whole pass is usually ONE pending fetch
     for s in scans:
         if hasattr(s.depth, "start_fetch"):
@@ -232,20 +241,38 @@ def scan_sample_batches(header: BamHeader, batches, layout: ReferenceLayout,
     return agg if agg is not None else _empty_scan(header, need_hist, trim)
 
 
+def _deferred_capable(depth_fn) -> bool:
+    """True for engines the fused scanner can drive (deferred dispatch
+    with per-group contig-disjoint merge): the contig-sharded mesh
+    sweep and the multi-process sweep (lock-step safe: the fused segment
+    walk is deterministic, so every rank issues identical dispatches)."""
+    import functools
+
+    from .parallel.distributed import compute_depth_stats_sweep_multihost
+    from .parallel.mesh_sweep import compute_depth_stats_sweep_mesh
+    fn = depth_fn.func if isinstance(depth_fn, functools.partial) else depth_fn
+    return fn in (compute_depth_stats_sweep_mesh,
+                  compute_depth_stats_sweep_multihost)
+
+
 def scan_any(header, payload, layout, flag_filter, need_hist, trim=None,
-             device=None) -> SampleScan:
+             device=None, depth_fn=None) -> SampleScan:
     """Dispatch: RecordBatch -> scan_sample; FusedScanStream -> the
     native fused engine (io/fastscan.py) when it applies; any other
-    batch iterator -> the classic streaming scan."""
+    batch iterator -> the classic streaming scan. depth_fn (default: the
+    single-device sweep on `device`) replaces the depth engine."""
     if isinstance(payload, RecordBatch):
         return scan_sample(header, payload, layout, flag_filter, need_hist,
-                           trim=trim, device=device)
+                           trim=trim, device=device, depth_fn=depth_fn)
     from .io.fastscan import FusedScanStream, fused_available, \
         scan_sample_fused
     if isinstance(payload, FusedScanStream):
-        if fused_available():
+        if fused_available() and (depth_fn is None
+                                  or _deferred_capable(depth_fn)):
             return scan_sample_fused(header, payload, layout, flag_filter,
-                                     need_hist, trim=trim, device=device)
+                                     need_hist, trim=trim, device=device,
+                                     depth_fn=depth_fn)
         payload = payload.batches()
     return scan_sample_batches(header, payload, layout, flag_filter,
-                               need_hist, trim=trim, device=device)
+                               need_hist, trim=trim, device=device,
+                               depth_fn=depth_fn)

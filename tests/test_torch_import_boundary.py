@@ -43,6 +43,9 @@ def test_no_source_imports_jax_or_the_jax_package():
     bad = []
     sources = _sources()
     assert len(sources) > 20
+    parallel = {os.path.basename(p) for p in sources
+                if os.path.basename(os.path.dirname(p)) == "parallel"}
+    assert {"mesh_sweep.py", "distributed.py", "mesh.py"} <= parallel
     for path in sources:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -128,6 +131,23 @@ def test_cram_and_gff_runs_load_no_jax(tmp_path, route):
                                   else "Contig\tx Mean")
 
 
+def test_two_rank_run_loads_no_jax(tmp_path):
+    """Both ranks of a multi-process job (gloo on the CPU, two shards a
+    rank) end with neither jax nor the JAX package loaded."""
+    from test_torch_multiprocess import communicate_all, rank_cmd
+    bam = _bam(str(tmp_path / "x.bam"))
+    procs = rank_cmd(lambda r: [sys.executable, "-c", CHECK, bam, "-o",
+                                str(tmp_path / f"out{r}.tsv")],
+                     2, {}, lambda r: REPO)
+    for rc, stdout, err in communicate_all(procs):
+        assert rc == 0, err
+        assert b"RC 0 LOADED []" in stdout, stdout.decode() + err
+        assert "engine: contig-sharded over 4 shard(s) of 2 process(es)" \
+            in err
+    assert (tmp_path / "out0.tsv").read_text().startswith("Contig\tx Mean")
+    assert not (tmp_path / "out1.tsv").exists()
+
+
 def test_chip_smoke_alone_fails_and_prints_no_result(tmp_path):
     """chip_smoke.py copied out of the repo fails: without a card here, and
     without the package on a machine that has one."""
@@ -152,6 +172,27 @@ def test_default_device_raises_without_a_card(monkeypatch):
     monkeypatch.setenv(D.ENV_VAR, "tpu")
     with pytest.raises(ValueError):
         D.default_device()
+
+
+def test_local_devices(monkeypatch):
+    """Logical CPU devices only when the CPU was asked for; without a
+    card and without that request, local_devices raises as
+    default_device does. XLA_FLAGS is never read."""
+    monkeypatch.setenv(D.ENV_VAR, "cpu")
+    monkeypatch.delenv(D.CPU_DEVICES_VAR, raising=False)
+    monkeypatch.setenv("XLA_FLAGS",
+                       "--xla_force_host_platform_device_count=8")
+    assert D.local_devices() == [torch.device("cpu")]
+    monkeypatch.setenv(D.CPU_DEVICES_VAR, "3")
+    assert D.local_devices() == [torch.device("cpu")] * 3
+    assert D.local_devices("cpu") == [torch.device("cpu")] * 3
+    monkeypatch.setenv(D.CPU_DEVICES_VAR, "0")
+    with pytest.raises(ValueError):
+        D.local_devices()
+    monkeypatch.delenv(D.ENV_VAR)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        D.local_devices()
 
 
 def test_cli_without_a_card_exits_with_an_error(tmp_path):
