@@ -90,16 +90,9 @@ tests hold all three against the JAX package (with tests/fake_mapper.py
 and fake skani and fastANI executables).
 
 Prints the card line, then one {"kernels": [...]} JSON line (with the
-launch count of every path), then the {"ok": true, "device": {...}}
-JSON line last.
-
-    python3 chip_smoke.py --multi-card
-
-runs, on a machine with two or more cards, only what exists across
-cards: the build, the bench fixture and the single-card TSV and oracle
-they are held against, then phases 13, 15 and 16 (every card takes a shard, the
-two-rank job takes NCCL), and prints their launches and times as one
-{"multi_card": {...}} JSON line.
+launch count of every path, and with two or more cards phase 16's wall
+seconds under "multi_card_wall_s"), then the {"ok": true, "device":
+{...}} JSON line last.
 """
 
 import contextlib
@@ -986,11 +979,12 @@ def main():
         # ---- 16. the multi-card CLI routes
         t0 = time.perf_counter()
         multi_card = torch.cuda.device_count() >= 2
-        mc_err = 0
+        mc_err, mc_wall = 0, None
         if multi_card:
             mc, mc_err = phase_multi_card(bam, tsv_gpu, work, dev, card)
             launches_by_path.update(
                 {k: v for k, v in mc.items() if not k.endswith("_s")})
+            mc_wall = {k: v for k, v in mc.items() if k.endswith("_s")}
         else:
             log("[multi-card] not driven: this machine has one card, and "
                 "COVERM_TPU_MESH=1 over cards and sample-DP over device "
@@ -1011,6 +1005,7 @@ def main():
         "max_abs_err": max(err, g_err, c_err, f_err, s_err, d_err, p_err,
                            fc_err, m_err, fm_err, mp_err, mc_err),
         "multi_card": multi_card,
+        "multi_card_wall_s": mc_wall,
         "ms": kernel_ms,
         "kernel_ms": kernel_ms,
         "device_ms": device_ms,
@@ -1042,55 +1037,5 @@ def main():
     return 0
 
 
-def multi_card_main():
-    """`chip_smoke.py --multi-card`: phases 13, 15 and 16 alone, with
-    what they are held against, on two or more cards."""
-    import torch
-    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
-        log("chip_smoke --multi-card: needs two or more NVIDIA cards")
-        return 1
-    from coverm_tpu_torch.io import native
-    from coverm_tpu_torch.ops import sweep_scan as K
-    from coverm_tpu_torch.ops.depth import (ReferenceLayout,
-                                            compute_depth_stats_numpy)
-    from coverm_tpu_torch.synth import write_sorted_bam
-    from coverm_tpu_torch.timing import card_line
-    dev = torch.device("cuda")
-    card = card_line()
-    log(f"[card] {torch.cuda.device_count()} x {card}")
-    K.build()
-    if native.get_lib() is None:
-        raise SystemExit("native BAM ingest library did not build")
-    os.environ["COVERM_TPU_MESH"] = "0"
-    work = tempfile.mkdtemp(prefix="coverm_tpu_torch_smoke_")
-    try:
-        bam = os.path.join(work, "bench.bam")
-        tids, starts, lengths = write_sorted_bam(bam)
-        truth = blocks_of(tids, starts, lengths, 150)
-        tsv = run_cli(["contig", "-b", bam, "-m", *METHODS],
-                      os.path.join(work, "single.tsv"), dev)
-        want = compute_depth_stats_numpy(ReferenceLayout.build(lengths, EE),
-                                         *truth, need_hist=True, trim=TRIM)
-        m_launches, m_err, mesh_ms, single_ms = phase_mesh(
-            lengths, truth, want, dev, card)
-        mp_launches, mp_err, backend, mp_wall = phase_multiprocess(
-            bam, tsv, work, card)
-        mc, mc_err = phase_multi_card(bam, tsv, work, dev, card)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
-    err = max(m_err, mp_err, mc_err)
-    if err != 0:
-        raise SystemExit(f"K1 disagrees with its plain version: {err}")
-    print(card)
-    print(json.dumps({"multi_card": {
-        "cards": torch.cuda.device_count(), "mesh_sweep": m_launches,
-        "mesh_pass_ms": mesh_ms, "mesh_single_device_pass_ms": single_ms,
-        "multiprocess_backend": backend,
-        "multiprocess_launches_by_rank": mp_launches,
-        "multiprocess_wall_s": mp_wall, **mc, "max_abs_err": err}}))
-    return 0
-
-
 if __name__ == "__main__":
-    sys.exit(multi_card_main() if sys.argv[1:] == ["--multi-card"]
-             else main())
+    sys.exit(main())

@@ -15,6 +15,8 @@ kernel's launches, the device's busy time and idle share over the
 profiled run, device milliseconds by layer (the sorts, the sweep-scan
 kernel, cumsums, gathers, searches, repeat_interleave, copies, the
 rest) and the TOP_KERNELS kernels by device time. Needs a CUDA device.
+The routes run on cuda:0 alone, so that on a machine with several cards
+they measure the single-card engine and not the multi-device ones.
 """
 
 from __future__ import annotations
@@ -109,7 +111,7 @@ def main() -> int:
     from .timing import card_line
 
     card = card_line()
-    dev = torch.device("cuda")
+    dev = torch.device("cuda", 0)  # one named card: local_devices is [it]
     work = tempfile.mkdtemp(prefix="coverm_tpu_torch_breakdown_")
     try:
         bam = os.path.join(work, "bench.bam")

@@ -53,8 +53,9 @@ def resolve_device(device=None) -> torch.device:
 
 def local_devices(device=None) -> list[torch.device]:
     """The devices this process runs shards on, of the type of
-    resolve_device(device): every card (in a multi-process job only the
-    rank's own, `cuda:(rank % device_count)`), or
+    resolve_device(device): every card, or only the card `device` names
+    when it names one (`cuda:1`), or in a multi-process job only the
+    rank's own, `cuda:(rank % device_count)`; on the CPU,
     COVERM_TPU_TORCH_CPU_DEVICES copies of `cpu`."""
     dev = resolve_device(device)
     if dev.type == "cpu":
@@ -67,4 +68,18 @@ def local_devices(device=None) -> list[torch.device]:
     count = torch.cuda.device_count()
     if torch.distributed.is_available() and torch.distributed.is_initialized():
         return [torch.device("cuda", torch.distributed.get_rank() % count)]
+    if dev.index is not None:
+        return [dev]
     return [torch.device("cuda", i) for i in range(count)]
+
+
+def device_grid(n_devices: int | None = None, dp: int = 1, devices=None):
+    """A `[dp][n]` grid, plain lists, over the first n_devices of
+    `devices` (default: local_devices()); they must split into dp equal
+    rows. The multi-device engines' meshes (parallel/) are such grids."""
+    devices = list(local_devices() if devices is None else devices)
+    devices = devices[: n_devices or len(devices)]
+    n = len(devices) // dp
+    if n < 1 or n * dp != len(devices):
+        raise ValueError(f"{len(devices)} devices do not make {dp} dp rows")
+    return [devices[r * n:(r + 1) * n] for r in range(dp)]

@@ -207,8 +207,9 @@ def _mesh_depth_fn(devices):
 def _scanned(sources, ee, flag_filter, need_hist, trim=None, device=None):
     """Yield (source, header, layout, scan, scan_seconds) in source order.
 
-    The devices are local_devices() of `device`'s type (default:
-    default_device()). With one of them, every sample scans on it and
+    The devices are local_devices(device) (default: default_device()):
+    every card, or only the card `device` names (`cuda:1`). With one of
+    them, every sample scans on it and
     the prefetch pipeline overlaps sample i+1's host decode with sample
     i's scan. With several devices and several samples, samples are
     scanned CONCURRENTLY, one per device group (sample data parallelism —

@@ -34,7 +34,7 @@ from functools import partial
 import torch
 import torch.distributed as dist
 
-from ..device import default_device, local_devices
+from ..device import default_device, device_grid, local_devices
 
 logger = logging.getLogger("coverm_tpu_torch")
 
@@ -97,10 +97,9 @@ def make_global_mesh(dp: int = 1):
     mine = [str(d) for d in local_devices()]
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, mine)
-    flat = [(r, torch.device(d)) for r, devs in enumerate(every)
-            for d in devs]
-    shard = len(flat) // dp
-    return [flat[i * shard:(i + 1) * shard] for i in range(dp)]
+    return device_grid(dp=dp, devices=[(r, torch.device(d))
+                                       for r, devs in enumerate(every)
+                                       for d in devs])
 
 
 def _local_cols(row) -> list[int]:

@@ -30,20 +30,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..device import local_devices
+from ..device import device_grid
 
 I64_MIN = torch.iinfo(torch.int64).min
 
-
-def make_mesh(n_devices: int | None = None, dp: int = 1, devices=None):
-    """A `[dp][pos]` grid over the first n_devices of `devices`
-    (default: local_devices())."""
-    devices = list(local_devices() if devices is None else devices)
-    devices = devices[: n_devices or len(devices)]
-    pos = len(devices) // dp
-    if pos < 1 or pos * dp != len(devices):
-        raise ValueError(f"{len(devices)} devices do not make {dp} dp rows")
-    return [devices[r * pos:(r + 1) * pos] for r in range(dp)]
+# make_mesh(n_devices=None, dp=1, devices=None): a `[dp][pos]` grid
+make_mesh = device_grid
 
 
 def _segment_sum(x, seg, n_seg, dtype):

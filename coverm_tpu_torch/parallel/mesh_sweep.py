@@ -29,23 +29,14 @@ from functools import partial
 import numpy as np
 import torch
 
-from ..device import local_devices
+from ..device import device_grid
 from ..ops.depth import ReferenceLayout
 from ..ops.sweep import (SPEC_HIST_BINS, PendingDepthStats, _bucket_geo,
                          _EmptyPending, choose_payload, packed_math,
                          prep_segments, trimmed_sum_via_hist)
 
-
-def make_shard_mesh(n_devices: int | None = None, dp: int = 1,
-                    devices=None) -> list[list[torch.device]]:
-    """A `[dp][shard]` grid over the first n_devices of `devices`
-    (default: local_devices())."""
-    devices = list(local_devices() if devices is None else devices)
-    devices = devices[: n_devices or len(devices)]
-    shard = len(devices) // dp
-    if shard < 1:
-        raise ValueError(f"{len(devices)} devices do not make {dp} dp rows")
-    return [devices[r * shard:(r + 1) * shard] for r in range(dp)]
+# make_shard_mesh(n_devices=None, dp=1, devices=None): a `[dp][shard]` grid
+make_shard_mesh = device_grid
 
 
 def assign_contigs(counts: np.ndarray, n_shards: int) -> np.ndarray:

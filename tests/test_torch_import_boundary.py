@@ -195,6 +195,21 @@ def test_local_devices(monkeypatch):
         D.local_devices()
 
 
+def test_local_devices_of_the_cards(monkeypatch):
+    """Every card by default; a device that names a card gives that card
+    alone, so a caller's `cuda:1` scans on cuda:1 and nowhere else. The
+    card count is faked: nothing here touches a card."""
+    monkeypatch.delenv(D.ENV_VAR, raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    every = [torch.device("cuda", i) for i in range(4)]
+    assert D.local_devices() == every
+    assert D.local_devices("cuda") == every
+    assert D.local_devices("cuda:3") == [torch.device("cuda", 3)]
+    assert D.device_grid(dp=2) == [every[:2], every[2:]]
+    assert D.device_grid(devices=["cuda:1"] * 4) == [["cuda:1"] * 4]
+
+
 def test_cli_without_a_card_exits_with_an_error(tmp_path):
     bam = _bam(str(tmp_path / "x.bam"))
     proc = subprocess.run(

@@ -502,6 +502,30 @@ def test_cuda_kernel_on_the_last_card(name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mesh", ["0", "auto"])
+def test_cuda_cli_scans_on_the_card_it_names(tmp_path, monkeypatch, mesh):
+    """`cli.main(argv, device=cuda:k)` launches every K1 on cuda:k, with
+    the multi-device engines off (COVERM_TPU_MESH=0) and on (auto), which
+    would otherwise take every card."""
+    from coverm_tpu_torch.cli import main as cli_main
+    from coverm_tpu_torch.ops import sweep as S
+    from coverm_tpu_torch.synth import write_sorted_bam
+    dev = _last_card()
+    bam = str(tmp_path / "x.bam")
+    write_sorted_bam(bam, n_contigs=4, contig_len=20_000, coverage=5)
+    monkeypatch.setenv("COVERM_TPU_MESH", mesh)
+    seen = []
+
+    def recording(key_s, *rest):
+        seen.append(key_s.device)
+        return K.sweep_scan(key_s, *rest)
+    monkeypatch.setattr(S, "sweep_scan", recording)  # the engine's name
+    assert cli_main(["contig", "-b", bam, "-m", "mean", "-o",
+                     str(tmp_path / "out.tsv")], device=dev) == 0
+    assert seen and set(seen) == {dev}
+
+
+@pytest.mark.cuda
 def test_cuda_launch_count_under_threads():
     """Eight threads launching at once: the count loses no launch."""
     import sys
