@@ -77,8 +77,15 @@ Phases, in order; any failure exits non-zero:
      5x one from another seed), only with two or more cards; with one,
      a line says they were not driven, and the kernels line carries
      "multi_card": false.
+ 17. `contig -m metabat` over a BAM of the bench's size whose NM (0-7 of
+     150 bp) puts 3 reads in 8 under metabat's 97% identity, streamed in
+     32 MiB segments: the fused scan, with the filter in its native
+     record loop, driven as phases 4-11 are and without one record
+     through the classic reader; then COVERM_TPU_FUSED=0 (the classic
+     reader, every record parsed once, then the read filter). The two
+     TSVs must be equal; the two pass times are printed.
 
-Phases 4 to 11 each run their command once to warm up (recording the
+Phases 4 to 11 and 17 each run their command once to warm up (recording the
 kernel's inputs and the engine's batches), then once with the kernel's
 launch count set to 0 just before and read just after: it must equal the
 number of engine batches and be above 0. They run with COVERM_TPU_MESH=0,
@@ -109,6 +116,7 @@ import numpy as np
 EE = 75
 TRIM = (0.05, 0.95)
 METHODS = ["mean", "trimmed_mean", "variance", "covered_fraction"]
+METABAT_SEGMENT_BYTES = 32 << 20   # phase 17's streamed segments
 H100_BYTES_PER_S = 3.35e12   # HBM3, NVIDIA data sheet (SXM)
 # INT32 peak: the data sheet's 67 TFLOP/s fp32 counts an FMA as two
 # operations (33.5 T lane-instructions/s), and an SM has 64 INT32 lanes
@@ -487,6 +495,66 @@ def counted(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, K.sweep_scan_launches
+
+
+@contextlib.contextmanager
+def parsed_records(store):
+    """Appends the record count of each parse of the classic record
+    reader (io/bam.parse_records) to store."""
+    from coverm_tpu_torch.io import bam as B
+    orig = B.parse_records
+
+    def parse(*args, **kwargs):
+        batch, end = orig(*args, **kwargs)
+        store.append(batch.n_records)
+        return batch, end
+    B.parse_records = parse
+    try:
+        yield
+    finally:
+        B.parse_records = orig
+
+
+def phase_metabat(work, dev, card):
+    """Phase 17: metabat's filtered fused scan against the classic reader
+    and the read filter. Returns the kernel's launches and largest error,
+    and the two pass times."""
+    import torch
+    from coverm_tpu_torch.synth import write_sorted_bam
+    path = os.path.join(work, "metabat.bam")
+    tids, _, _ = write_sorted_bam(path, seed=2, nm_hi=8)
+    argv = ["contig", "-b", path, "-m", "metabat"]
+    fused_parsed, classic_parsed = [], []
+    os.environ["COVERM_TPU_SEGMENT_BYTES"] = str(METABAT_SEGMENT_BYTES)
+    try:
+        with parsed_records(fused_parsed):
+            tsv, wall, launches, _, err = drive("metabat", argv, work, dev)
+        os.environ["COVERM_TPU_FUSED"] = "0"
+        with parsed_records(classic_parsed):
+            t0 = time.perf_counter()
+            classic = run_cli(argv, os.path.join(work, "metabat_classic.tsv"),
+                              dev)
+            torch.cuda.synchronize()
+            classic_wall = time.perf_counter() - t0
+    finally:
+        os.environ.pop("COVERM_TPU_SEGMENT_BYTES", None)
+        os.environ.pop("COVERM_TPU_FUSED", None)
+    if fused_parsed:
+        raise SystemExit("metabat: the fused route ran the classic record "
+                         "reader")
+    if sum(classic_parsed) != tids.size or len(classic_parsed) < 4:
+        raise SystemExit(f"metabat: the classic reader parsed "
+                         f"{sum(classic_parsed)} records of {tids.size} in "
+                         f"{len(classic_parsed)} segments")
+    if tsv != classic:
+        raise SystemExit("metabat: the fused filtered TSV differs from "
+                         "COVERM_TPU_FUSED=0's")
+    if tsv.count(b"\n") != 33:
+        raise SystemExit("metabat TSV does not have 32 rows")
+    log(f"[metabat] {tids.size} reads over {len(classic_parsed)} segments: "
+        f"fused filtered scan {wall:.3f} s, classic reader and read filter "
+        f"{classic_wall:.3f} s, TSVs equal; {card}")
+    return launches, err, wall, classic_wall
 
 
 def phase_mesh(lengths, truth, want, dev, card):
@@ -990,6 +1058,12 @@ def main():
                 "COVERM_TPU_MESH=1 over cards and sample-DP over device "
                 "groups need two or more")
         phase_s["multi_card"] = time.perf_counter() - t0
+
+        # ---- 17. metabat: the filtered fused scan against the classic one
+        t0 = time.perf_counter()
+        (launches_by_path["metabat"], mb_err, mb_fused_s,
+         mb_classic_s) = phase_metabat(work, dev, card)
+        phase_s["metabat"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"[phases] seconds: {json.dumps(phase_s)}")
@@ -1003,7 +1077,7 @@ def main():
         "launches": launches,
         "launches_by_path": launches_by_path,
         "max_abs_err": max(err, g_err, c_err, f_err, s_err, d_err, p_err,
-                           fc_err, m_err, fm_err, mp_err, mc_err),
+                           fc_err, m_err, fm_err, mp_err, mc_err, mb_err),
         "multi_card": multi_card,
         "multi_card_wall_s": mc_wall,
         "ms": kernel_ms,
@@ -1030,6 +1104,8 @@ def main():
         "multiprocess_backend": mp_backend,
         "multiprocess_launches_by_rank": mp_launches,
         "multiprocess_wall_s": mp_wall,
+        "metabat_fused_filtered_s": mb_fused_s,
+        "metabat_classic_s": mb_classic_s,
         "phase_s": phase_s,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,14 @@ from .takers import OutputWriter
 
 class FilteredBamFileSource(BamFileSource):
     """BAM source with inline read/pair filtering
-    (StreamingFilteredNamedBamReader semantics, bam_generator.rs:609-775)."""
+    (StreamingFilteredNamedBamReader semantics, bam_generator.rs:609-775).
+
+    A streamed BGZF BAM under a single-read-only filter (metabat's 97%
+    identity preset, any --min-read-* without a pair threshold) stays on
+    the fused native scan, which applies the filter in its record loop
+    and counts the primary alignments before it, as filter_payload does.
+    Pair filters, CRAM, the whole-file route and COVERM_TPU_FUSED=0 take
+    the classic batches through filter_payload."""
 
     def __init__(self, path, params: FilterParams, flag_filters: FlagFilter,
                  stoit_name=None):
@@ -29,8 +36,13 @@ class FilteredBamFileSource(BamFileSource):
         self.num_primary_override = None
 
     def read(self):
+        from .io.fastscan import FusedScanStream
         from .readfilter import filter_payload
+
         header, payload = super().read()
+        if isinstance(payload, FusedScanStream):
+            return header, payload.filtered(self, self.params,
+                                            self.flag_filters)
         return header, filter_payload(self, payload, self.params,
                                       self.flag_filters)
 

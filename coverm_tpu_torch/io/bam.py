@@ -144,25 +144,20 @@ class RecordBatch:
             data=self.data,
         )
 
-    def head(self, k: int) -> "RecordBatch":
-        """First k record rows (and their blocks) as zero-copy views.
-        block_read is non-decreasing (blocks are emitted in record
-        order), so the block cut is a searchsorted prefix."""
-        bcut = int(np.searchsorted(self.block_read, k, side="left"))
+    def rows(self, lo: int, hi: int) -> "RecordBatch":
+        """Record rows [lo, hi) (and their blocks) as zero-copy views;
+        block_read counts from row lo. block_read is non-decreasing
+        (blocks are emitted in record order), so the block range is a
+        searchsorted slice."""
+        b0, b1 = (int(i) for i in np.searchsorted(self.block_read, (lo, hi)))
+        block_read = self.block_read[b0:b1]
         return RecordBatch(
-            n_records=k,
-            tid=self.tid[:k], pos=self.pos[:k], flag=self.flag[:k],
-            mapq=self.mapq[:k], nm=self.nm[:k], as_score=self.as_score[:k],
-            seq_len=self.seq_len[:k], aligned_cov=self.aligned_cov[:k],
-            aligned_single=self.aligned_single[:k],
-            aligned_pair=self.aligned_pair[:k], indels=self.indels[:k],
-            read_end=self.read_end[:k], qname_hash=self.qname_hash[:k],
-            rec_start=self.rec_start[:k], rec_end=self.rec_end[:k],
-            block_read=self.block_read[:bcut],
-            block_start=self.block_start[:bcut],
-            block_end=self.block_end[:bcut],
-            data=self.data,
-        )
+            n_records=hi - lo,
+            **{c: getattr(self, c)[lo:hi] for c in _RECORD_COLUMNS},
+            rec_start=self.rec_start[lo:hi], rec_end=self.rec_end[lo:hi],
+            block_read=block_read - np.int32(lo) if lo else block_read,
+            block_start=self.block_start[b0:b1],
+            block_end=self.block_end[b0:b1], data=self.data)
 
     def qnames(self) -> list:
         """Decode query names (slow path; used by pair-filtering)."""
@@ -173,6 +168,38 @@ class RecordBatch:
             off = s + 36
             out.append(bytes(data[off:off + l_read_name - 1]).decode())
         return out
+
+
+# the read-level arrays of a RecordBatch but the two raw-byte offsets
+_RECORD_COLUMNS = ("tid", "pos", "flag", "mapq", "nm", "as_score",
+                   "seq_len", "aligned_cov", "aligned_single",
+                   "aligned_pair", "indels", "read_end", "qname_hash")
+
+
+def concat_batches(pieces) -> RecordBatch:
+    """One RecordBatch of already-parsed non-empty batches, in order. The
+    records' raw bytes are copied into one buffer, rec_start/rec_end
+    rebased into it (readfilter._mtid and the `filter` subcommand read
+    raw records through them) and block_read offset by the rows before
+    each piece."""
+    if len(pieces) == 1:
+        return pieces[0]
+    datas, rec_start, rec_end, block_read = [], [], [], []
+    base = rows = 0
+    for b in pieces:
+        lo, hi = int(b.rec_start[0]), int(b.rec_end[-1])
+        datas.append(_as_u8(b.data)[lo:hi])
+        rec_start.append(b.rec_start - lo + base)
+        rec_end.append(b.rec_end - lo + base)
+        block_read.append(b.block_read + np.int32(rows))
+        base += hi - lo
+        rows += b.n_records
+    cols = {c: np.concatenate([getattr(b, c) for b in pieces])
+            for c in _RECORD_COLUMNS + ("block_start", "block_end")}
+    return RecordBatch(
+        n_records=rows, **cols,
+        rec_start=np.concatenate(rec_start), rec_end=np.concatenate(rec_end),
+        block_read=np.concatenate(block_read), data=np.concatenate(datas))
 
 
 def _u32_gather(arr: np.ndarray, offs: np.ndarray) -> np.ndarray:
@@ -591,7 +618,12 @@ class BamStreamReader:
     def _run(self):
         from ..prefetch import prefetch_iter
 
+        # carry: the raw bytes of a record that straddles two segments
+        # (or of a header that spans them), never parsed yet; held: the
+        # parsed rows of the trailing open contig, yielded when it
+        # closes. Every record is parsed once.
         carry = b""
+        held = []
         # prefetch one segment ahead: BGZF inflate (native thread pool)
         # overlaps record parse — the pipeline analogue of htslib's
         # decode-thread overlap with the reference's scan thread.
@@ -611,33 +643,38 @@ class BamStreamReader:
                 yield self.header
             batch, end_off = parse_records(buf, start)
             check_stuck_zero(buf, end_off)
+            carry = buf[end_off:]
             if batch.n_records == 0:
-                carry = buf[end_off:]
                 continue
             if not self.cut_contigs:
                 yield batch
-                carry = buf[end_off:]
                 continue
-            # hold back the trailing open contig so no contig spans batches
+            # hold back the trailing open contig so no contig spans
+            # batches; records of no contig (tid -1: the unplaced
+            # unmapped tail) are yielded at once
             last_tid = int(batch.tid[-1])
-            earlier = np.flatnonzero(batch.tid != last_tid)
-            cut = int(earlier[-1]) + 1 if earlier.size else 0
+            if last_tid < 0:
+                cut = batch.n_records
+            else:
+                earlier = np.flatnonzero(batch.tid != last_tid)
+                cut = int(earlier[-1]) + 1 if earlier.size else 0
             if cut == 0:
-                carry = buf[int(batch.rec_start[0]):]
+                if held and int(held[0].tid[0]) != last_tid:
+                    yield concat_batches(held)
+                    held = []
+                held.append(batch)
                 continue
-            cut_off = int(batch.rec_start[cut])
-            yield batch.head(cut)
-            carry = buf[cut_off:]
+            yield concat_batches(held + [batch.rows(0, cut)])
+            n = batch.n_records
+            held = [batch.rows(cut, n)] if cut < n else []
         if self.header is None:
             self.header, start = _parse_header(carry)
             yield self.header
             carry = carry[start:] if start else carry
-            batch, e2 = parse_records(carry, 0) if len(carry) else (None, 0)
-            check_stuck_zero(carry, e2)
-        elif len(carry):
+        if len(carry):
             batch, e2 = parse_records(carry, 0)
             check_stuck_zero(carry, e2)
-        else:
-            batch = None
-        if batch is not None and batch.n_records:
-            yield batch
+            if batch.n_records:
+                held.append(batch)
+        if held:
+            yield concat_batches(held)

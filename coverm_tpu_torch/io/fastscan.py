@@ -2,8 +2,9 @@
 
 This module collapses the host side of BAM ingest into ONE native pass
 per segment (native/bamdecode.cpp ct_stats_scan): the
-chain walk, CIGAR walk, aux NM scan, flag gating, and every per-contig
-statistic the scan layer needs are computed in the C++ workers, and only
+chain walk, CIGAR walk, aux NM scan, flag gating, a filtered source's
+single-read filter, and every per-contig statistic the scan layer needs
+are computed in the C++ workers, and only
 the filtered coverage-block arrays (12 bytes/block) cross back into
 Python for device dispatch.  Columns the coverage path never reads
 (qname hashes, AS scores, per-record arrays, record byte offsets) are
@@ -69,7 +70,13 @@ class FusedScanStream:
     iterating it yields plain contig-disjoint RecordBatches via
     BamStreamReader, byte-identical to the classic path.  The CRAM plan
     holds an mmap and an open file; close() releases them (the fused
-    scan does so when it has read the last slice)."""
+    scan does so when it has read the last slice).
+
+    A filtered source puts its read filter on the stream with
+    filtered(); `read_filter` is then the readfilter.FilterParams that
+    the fused scan applies in its record loop, and the classic batches
+    of anyone who iterates the stream instead pass through
+    readfilter.filter_payload."""
 
     def __init__(self, path: str, target_bytes: int | None = None):
         self.path = path
@@ -81,12 +88,42 @@ class FusedScanStream:
         self._gen = None
         self._first = None
         self._cram = None
+        self._plan = None
+        self._filter = None  # (source, params, flag_filters)
+
+    def filtered(self, source, params, flag_filters):
+        """This stream's payload under a filtered source's read filter
+        (commands.FilteredBamFileSource): the stream itself, the filter
+        applied in the fused scan's record loop, when it is on the BGZF
+        plan, the native scan is available and the filter is
+        single-read-only. The scan counts the primary alignments before
+        the filter, so source.num_primary_override stays None. Else (pair
+        filters join mates; CRAM) the classic batches through
+        readfilter.filter_payload, which sets it."""
+        from ..readfilter import filter_payload
+
+        if (self._plan is not None and fused_available()
+                and params.filtering_modes(flag_filters) == (True, False)):
+            self._filter = (source, params, flag_filters)
+            source.num_primary_override = None
+            return self
+        return filter_payload(source, self, params, flag_filters)
+
+    @property
+    def read_filter(self):
+        """The readfilter.FilterParams the fused scan applies, or None."""
+        return None if self._filter is None else self._filter[1]
 
     # ---- classic fallback ----
     def batches(self):
+        from ..readfilter import filter_payload
+
         header, gen = BamStreamReader(self.path,
                                       target_bytes=self.target_bytes).read()
-        return gen
+        if self._filter is None:
+            return gen
+        source, params, flag_filters = self._filter
+        return filter_payload(source, gen, params, flag_filters)
 
     def __iter__(self):
         return self.batches()
@@ -343,7 +380,9 @@ def scan_sample_fused(header, stream: FusedScanStream, layout, flag_filter,
     when depth_fn is given (a deferred-capable engine: the contig-sharded
     mesh sweep or the multi-process sweep), through depth_fn, deferred
     and without the accumulator, so multi-device runs get the same fused
-    host ingestion."""
+    host ingestion.  The stream's `read_filter` goes to every native
+    call: a record that fails it counts toward the primary alignments
+    and nothing else, as readfilter.filter_payload leaves it."""
     from ..prefetch import prefetch_iter
     from ..scan import (BamSortingError, MissingNMTagError, SampleScan,
                         merge_depth_stats)
@@ -352,6 +391,7 @@ def scan_sample_fused(header, stream: FusedScanStream, layout, flag_filter,
 
     C = header.n_ref
     skip_mask, req_mask = flag_filter.masks()
+    rf = stream.read_filter
     stats = native.StatsAccum(C)
     dep_acc = DepthAccumulator()
     pendings = []
@@ -401,7 +441,7 @@ def scan_sample_fused(header, stream: FusedScanStream, layout, flag_filter,
                 k = min(max(k, i + 1), n)
                 res = native.ingest_scan(mm, off[i:k], csz[i:k], usz[i:k],
                                          raw_carry, 0, stats, skip_mask,
-                                         req_mask)
+                                         req_mask, read_filter=rf)
                 if res is None:
                     raise RuntimeError("native fused ingest unavailable")
                 bt, bs, be, seg_counts, raw_carry = res
@@ -412,7 +452,8 @@ def scan_sample_fused(header, stream: FusedScanStream, layout, flag_filter,
                 # trailing bytes (or a header-probe remainder when the
                 # whole file fit in the probe): scan them directly
                 res = native.stats_scan(np.ascontiguousarray(raw_carry), 0,
-                                        stats, skip_mask, req_mask)
+                                        stats, skip_mask, req_mask,
+                                        read_filter=rf)
                 if res is not None and res[0].size:
                     yield res[0], res[1], res[2], res[3]
             return
@@ -427,7 +468,7 @@ def scan_sample_fused(header, stream: FusedScanStream, layout, flag_filter,
                     out = np.concatenate([leftover, out[lo:hi]])
                     lo, hi = 0, out.size
             res = native.stats_scan(out, lo, stats, skip_mask, req_mask,
-                                    end=hi)
+                                    end=hi, read_filter=rf)
             if res is None:
                 raise RuntimeError("native fused scan unavailable")
             bt, bs, be, seg_counts, end_off = res

@@ -115,9 +115,10 @@ def get_lib():
         try:
             c_f64p = ctypes.POINTER(ctypes.c_double)
             lib.ct_stats_scan.restype = ctypes.c_void_p
+            c_rfp = ctypes.POINTER(ReadFilter)
             lib.ct_stats_scan.argtypes = [c_u8p, c_i64, c_i64, ctypes.c_int32,
                                           ctypes.c_int32, ctypes.c_int32,
-                                          ctypes.c_int32, c_i64p]
+                                          ctypes.c_int32, c_i64p, c_rfp]
             lib.ct_stats_fill.restype = ctypes.c_int
             lib.ct_stats_fill.argtypes = [
                 ctypes.c_void_p, ctypes.c_int32, c_i64p, c_i64p, c_i64p,
@@ -129,7 +130,7 @@ def get_lib():
             lib.ct_ingest_scan.argtypes = [
                 c_u8p, c_i64, c_i64p, c_i64p, c_i64p, c_u8p, c_i64, c_i64,
                 ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-                ctypes.c_int32, c_i64p]
+                ctypes.c_int32, c_i64p, c_rfp]
             lib.ct_stats_leftover.restype = None
             lib.ct_stats_leftover.argtypes = [ctypes.c_void_p, c_u8p]
         except AttributeError:
@@ -378,6 +379,31 @@ def scan_records(data, header_end: int, end: int | None = None):
     return rec_off, nm, as_score, qh
 
 
+class ReadFilter(ctypes.Structure):
+    """The single-read filter as the fused scan takes it
+    (native/stats_state.h): readfilter.single_read_passes's thresholds,
+    the two fractions as the float32 values numpy compares against."""
+
+    _fields_ = [("min_mapq", ctypes.c_int32),
+                ("min_aligned_length", ctypes.c_int64),
+                ("min_aligned_percent", ctypes.c_float),
+                ("min_identity", ctypes.c_float)]
+
+
+def _read_filter_arg(params):
+    """A pointer to the ReadFilter of a readfilter.FilterParams's
+    single-read thresholds, or None (no filter)."""
+    if params is None:
+        return None
+    # a min_mapq outside 0..256 keeps or drops the same records as its
+    # nearest bound (255 alone means no test)
+    return ctypes.byref(ReadFilter(
+        min(max(int(params.min_mapq), 0), 256),
+        int(params.min_aligned_length_single),
+        float(np.float32(params.min_aligned_percent_single)),
+        float(np.float32(params.min_percent_identity_single))))
+
+
 class StatsAccum:
     """Per-contig statistics accumulated across fused native scans.
 
@@ -452,9 +478,11 @@ def _finish_stats_handle(lib, h, scalars, acc: StatsAccum,
 
 def ingest_scan(comp: np.ndarray, off, csz, usz, carry, start: int,
                 acc: StatsAccum, skip_mask: int, req_mask: int,
-                n_threads: int = 0):
+                n_threads: int = 0, read_filter=None):
     """Fully fused segment ingest: threaded BGZF inflate + frontier-
     chasing chain walk + stats/block scan in one native call.
+    `read_filter` (a readfilter.FilterParams, or None) is the single-read
+    filter that a mapped record passing the flag masks must pass too.
 
     Returns (btid, bstart, bend, seg_counts, leftover_bytes) or None
     when the entry points are unavailable; raises ValueError on
@@ -474,7 +502,7 @@ def ingest_scan(comp: np.ndarray, off, csz, usz, carry, start: int,
     h = lib.ct_ingest_scan(_u8p(comp), off.size, _i64p(off), _i64p(csz),
                            _i64p(usz), _u8p(carry), carry.size, start,
                            acc.n_ref, skip_mask, req_mask, n_threads,
-                           _i64p(scalars))
+                           _i64p(scalars), _read_filter_arg(read_filter))
     if not h:
         return None
     total = carry.size + int(usz.sum())
@@ -484,10 +512,11 @@ def ingest_scan(comp: np.ndarray, off, csz, usz, carry, start: int,
 
 def stats_scan(data, start: int, acc: StatsAccum, skip_mask: int,
                req_mask: int, end: int | None = None,
-               n_threads: int = 0):
+               n_threads: int = 0, read_filter=None):
     """Fused chain-walk + stats + block extraction over the COMPLETE
     records in [start, end), accumulating per-contig statistics into
-    `acc` (deterministic chunk-ordered merge in C++).
+    `acc` (deterministic chunk-ordered merge in C++); `read_filter` as in
+    ingest_scan.
 
     Returns (btid, bstart, bend, end_off) — the filtered coverage-block
     arrays in record order — or None when the native entry points are
@@ -501,7 +530,8 @@ def stats_scan(data, start: int, acc: StatsAccum, skip_mask: int,
         n_threads = min(os.cpu_count() or 1, 8)
     scalars = np.zeros(11, np.int64)
     h = lib.ct_stats_scan(_u8p(arr), end, start, acc.n_ref, skip_mask,
-                          req_mask, n_threads, _i64p(scalars))
+                          req_mask, n_threads, _i64p(scalars),
+                          _read_filter_arg(read_filter))
     if not h:
         return None
     btid, bstart, bend, seg_counts, _ = _finish_stats_handle(

@@ -651,6 +651,7 @@ int64_t ct_rans_decode(const uint8_t* in, int64_t in_len, uint8_t* out,
 #include "stats_state.h"
 
 using covermio::ChunkOut;
+using covermio::ReadFilter;
 using covermio::StatsRun;
 using covermio::StatsScanState;
 
@@ -663,11 +664,29 @@ constexpr int64_t kChunkRecs = 1ll << kChunkShift;
 
 namespace {
 
+// The single-read filter of readfilter.single_read_passes
+// (filter.rs:243-279), bit for bit: the thresholds arrive as the float32
+// values numpy compares against, the quotients are IEEE float32 as numpy
+// computes them (no -ffast-math), so 0/0 is NaN and fails every test and
+// x/0 is +inf and passes.  min_mapq 255 means no mapq test.
+inline bool single_read_passes(const ReadFilter& f, uint8_t mapq,
+                               int64_t aligned, int32_t l_seq, int64_t nm) {
+  if (f.min_mapq != 255 && (mapq < f.min_mapq || mapq == 255)) return false;
+  float frac = (float)aligned / (float)l_seq;
+  float identity = 1.0f - (float)nm / (float)aligned;
+  return aligned >= f.min_aligned_length && frac >= f.min_aligned_percent &&
+         identity >= f.min_identity;
+}
+
 // One chunk's per-record scan: stats + filtered blocks (shared by the
-// pre-decoded and inflate-fused entry points).
+// pre-decoded and inflate-fused entry points).  With kFilter a mapped
+// record that passes the flag masks must also pass the single-read
+// filter, or it leaves no trace but its count in n_primary; the two
+// instantiations keep the test out of the unfiltered loop.
+template <bool kFilter>
 void scan_chunk_records(const uint8_t* data, int64_t pos, int64_t count,
                         int32_t n_ref, int32_t skip_mask, int32_t req_mask,
-                        ChunkOut& out) {
+                        const ReadFilter& rf, ChunkOut& out) {
   out.runs.reserve(8);
   out.btid.reserve((size_t)count + count / 8);
   out.bstart.reserve((size_t)count + count / 8);
@@ -703,32 +722,17 @@ void scan_chunk_records(const uint8_t* data, int64_t pos, int64_t count,
     // in-record geometry must fit before any region is walked
     // (corrupt l_read_name/n_cigar/l_seq would otherwise read out of
     // the buffer -- found by tests/test_native_fuzz.py)
-    int32_t l_seq_chk;
-    memcpy(&l_seq_chk, rec + 16, 4);
-    if (tid < 0 || tid >= n_ref || l_seq_chk < 0 ||
-        32 + (int64_t)l_read_name + 4ll * n_cigar > rec_len) {
+    int32_t l_seq;
+    memcpy(&l_seq, rec + 16, 4);
+    if (l_seq < 0 || 32 + (int64_t)l_read_name + 4ll * n_cigar > rec_len) {
       out.err = r + 1;
       flush();
       return;
     }
-    if (out.first_tid < 0) out.first_tid = tid;
-    if (tid < prev_tid) out.sorted = false;
-    prev_tid = tid;
-    out.last_tid = tid;
-
-    if (tid != cur_tid) {
-      flush();
-      run = StatsRun{};
-      run.tid = tid;
-      cur_tid = tid;
-    }
-    bool nonsupp = (flag & 0x800) == 0;
-    run.reads_all++;
-    run.reads_primary += primary;
-    run.reads_nonsupp += nonsupp;
 
     // CIGAR walk: coverage blocks + aligned length + indels
     // (contig.rs:168-202 semantics)
+    const size_t nb0 = out.btid.size();
     const uint8_t* cig = rec + 32 + l_read_name;
     int64_t cursor = posr, a_cov = 0, ind = 0;
     for (int64_t k = 0; k < n_cigar; k++) {
@@ -743,7 +747,6 @@ void scan_chunk_records(const uint8_t* data, int64_t pos, int64_t count,
           out.btid.push_back(tid);
           out.bstart.push_back((int32_t)cursor);
           out.bend.push_back((int32_t)(cursor + ln));
-          run.block_count++;
           a_cov += ln;
           cursor += ln;
           break;
@@ -763,8 +766,6 @@ void scan_chunk_records(const uint8_t* data, int64_t pos, int64_t count,
           break;
       }
     }
-    int32_t l_seq;
-    memcpy(&l_seq, rec + 16, 4);
     int64_t aux = 32 + l_read_name + 4ll * n_cigar + (l_seq + 1) / 2 + l_seq;
     int64_t nm, as_unused;
     if (scan_aux_tags(rec, aux, rec_len, &nm, &as_unused, false) != 0) {
@@ -772,6 +773,36 @@ void scan_chunk_records(const uint8_t* data, int64_t pos, int64_t count,
       flush();
       return;
     }
+    if constexpr (kFilter) {
+      // a_cov is the filter's M+I+D+=+X; the mapq byte is rec[9]
+      if (!single_read_passes(rf, rec[9], a_cov, l_seq, nm)) {
+        out.btid.resize(nb0);
+        out.bstart.resize(nb0);
+        out.bend.resize(nb0);
+        continue;
+      }
+    }
+    if (tid < 0 || tid >= n_ref) {
+      out.err = r + 1;
+      flush();
+      return;
+    }
+    if (out.first_tid < 0) out.first_tid = tid;
+    if (tid < prev_tid) out.sorted = false;
+    prev_tid = tid;
+    out.last_tid = tid;
+
+    if (tid != cur_tid) {
+      flush();
+      run = StatsRun{};
+      run.tid = tid;
+      cur_tid = tid;
+    }
+    bool nonsupp = (flag & 0x800) == 0;
+    run.reads_all++;
+    run.reads_primary += primary;
+    run.reads_nonsupp += nonsupp;
+    run.block_count += (int64_t)(out.btid.size() - nb0);
     run.indel_sum += ind;
     if (nm < 0) {
       out.nm_missing++;  // the caller raises before any result is used
@@ -870,8 +901,9 @@ void inflate_drain(InflateWork* inf) {
 // the inflate) and scan chunks start while later blocks still inflate.
 void run_stats_pipeline(const uint8_t* data, int64_t end, int64_t start,
                         int32_t n_ref, int32_t skip_mask, int32_t req_mask,
-                        int32_t n_threads, int64_t* scalars,
-                        StatsScanState* st, InflateWork* inf) {
+                        const ReadFilter* rf, int32_t n_threads,
+                        int64_t* scalars, StatsScanState* st,
+                        InflateWork* inf) {
   int64_t max_chunks = (end - start) / (kChunkRecs * 36) + 2;
   std::vector<int64_t> chunk_off((size_t)max_chunks, 0);
   st->chunks.resize((size_t)max_chunks);
@@ -940,8 +972,14 @@ void run_stats_pipeline(const uint8_t* data, int64_t end, int64_t start,
     // which orders the n_records write before this read
     if (ci == total_chunks.load(std::memory_order_acquire) - 1)
       count = st->n_records - (ci << kChunkShift);
-    scan_chunk_records(data, chunk_off[(size_t)ci], count, n_ref,
-                       skip_mask, req_mask, st->chunks[(size_t)ci]);
+    if (rf)
+      scan_chunk_records<true>(data, chunk_off[(size_t)ci], count, n_ref,
+                               skip_mask, req_mask, *rf,
+                               st->chunks[(size_t)ci]);
+    else
+      scan_chunk_records<false>(data, chunk_off[(size_t)ci], count, n_ref,
+                                skip_mask, req_mask, ReadFilter{},
+                                st->chunks[(size_t)ci]);
   };
 
   auto worker = [&]() {
@@ -1005,12 +1043,14 @@ extern "C" {
 // pre-decoded buffer.  Returns an opaque handle (free with
 // ct_stats_free) or null on alloc failure.  scalars[0..9]: n_records,
 // end_off, n_blocks, n_primary, nm_missing, sorted(1 ok), first_tid,
-// last_tid, err(record idx+1), inflate_err(always 0 here).
+// last_tid, err(record idx+1), inflate_err(always 0 here).  `rf` (null:
+// none) is the single-read filter a passing mapped record must pass too.
 void* ct_stats_scan(const uint8_t* data, int64_t end, int64_t start,
                     int32_t n_ref, int32_t skip_mask, int32_t req_mask,
-                    int32_t n_threads, int64_t* scalars) {
+                    int32_t n_threads, int64_t* scalars,
+                    const ReadFilter* rf) {
   auto* st = new StatsScanState();
-  run_stats_pipeline(data, end, start, n_ref, skip_mask, req_mask,
+  run_stats_pipeline(data, end, start, n_ref, skip_mask, req_mask, rf,
                      n_threads, scalars, st, nullptr);
   return st;
 }
@@ -1020,13 +1060,15 @@ void* ct_stats_scan(const uint8_t* data, int64_t end, int64_t start,
 // segment's incomplete tail record) is copied to the head of the
 // malloc'd decode buffer; `start` is the parse offset within the
 // assembled buffer (normally 0).  The handle owns the decode buffer —
-// read the leftover tail with ct_stats_leftover before freeing.
+// read the leftover tail with ct_stats_leftover before freeing.  `rf`
+// as in ct_stats_scan.
 void* ct_ingest_scan(const uint8_t* comp, int64_t n_blocks,
                      const int64_t* b_off, const int64_t* b_csz,
                      const int64_t* b_usz, const uint8_t* carry,
                      int64_t carry_len, int64_t start, int32_t n_ref,
                      int32_t skip_mask, int32_t req_mask,
-                     int32_t n_threads, int64_t* scalars) {
+                     int32_t n_threads, int64_t* scalars,
+                     const ReadFilter* rf) {
   auto* inf = new InflateWork();
   inf->comp = comp;
   inf->n_blocks = n_blocks;
@@ -1055,7 +1097,7 @@ void* ct_ingest_scan(const uint8_t* comp, int64_t n_blocks,
   auto* st = new StatsScanState();
   st->buf = buf;
   st->buf_len = total;
-  run_stats_pipeline(buf, total, start, n_ref, skip_mask, req_mask,
+  run_stats_pipeline(buf, total, start, n_ref, skip_mask, req_mask, rf,
                      n_threads, scalars, st, inf);
   delete inf;
   return st;

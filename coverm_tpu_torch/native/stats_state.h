@@ -19,6 +19,16 @@ struct StatsRun {
   double ident_primary, ident_nonsupp;
 };
 
+// The single-read filter (ct_stats_scan / ct_ingest_scan; io/native.py
+// ReadFilter has the same layout): min_mapq 255 for none, the two
+// fractions as float32.
+struct ReadFilter {
+  int32_t min_mapq;
+  int64_t min_aligned_length;
+  float min_aligned_percent;
+  float min_identity;
+};
+
 struct ChunkOut {
   std::vector<StatsRun> runs;
   std::vector<int32_t> btid, bstart, bend;

@@ -43,9 +43,10 @@ class SynthReads:
 
 
 def synth_reads(n_contigs=32, contig_len=1_000_000, coverage=20,
-                read_len=150, seed=0) -> SynthReads:
+                read_len=150, seed=0, nm_hi=3) -> SynthReads:
     """Draw the workload's reads from `seed`, always in the same order, so
-    that the BAM and its CRAM twin hold the same alignments."""
+    that the BAM and its CRAM twin hold the same alignments; NM is drawn
+    from 0..nm_hi - 1."""
     rng = np.random.default_rng(seed)
     n_reads = n_contigs * contig_len * coverage // read_len
     tids = np.sort(rng.integers(0, n_contigs, n_reads)).astype(np.int32)
@@ -60,7 +61,7 @@ def synth_reads(n_contigs=32, contig_len=1_000_000, coverage=20,
         m = min(_CHUNK, n_reads - o)
         snp_at[o:o + m] = rng.integers(0, read_len, m)
         snp_xor[o:o + m] = rng.integers(1, 4, m).astype(np.uint8)
-    nm = rng.integers(0, 3, n_reads, dtype=np.uint8)
+    nm = rng.integers(0, nm_hi, n_reads, dtype=np.uint8)
     return SynthReads(tids, starts, contig_codes, snp_at, snp_xor, nm,
                       contig_len, read_len)
 
@@ -70,11 +71,12 @@ def _names_of(n_contigs, names):
 
 
 def write_sorted_bam(path, n_contigs=32, contig_len=1_000_000, coverage=20,
-                     read_len=150, seed=0, names=None):
+                     read_len=150, seed=0, names=None, nm_hi=3):
     """Write the BAM; returns (tids, starts, lengths) of its reads, all
     mapped, primary, mapq 60. `names` gives the contig names (default
-    c0, c1, ...)."""
-    reads = synth_reads(n_contigs, contig_len, coverage, read_len, seed)
+    c0, c1, ...); NM is drawn from 0..nm_hi - 1."""
+    reads = synth_reads(n_contigs, contig_len, coverage, read_len, seed,
+                        nm_hi)
     tids, starts = reads.tids, reads.starts
     n_reads = tids.size
     names = _names_of(n_contigs, names)

@@ -6,9 +6,12 @@ port on the CPU by request (COVERM_TPU_TORCH_DEVICE=cpu). Standard
 output must be byte-equal: contig and genome mode (separator,
 definition file and genome FASTA files), dense and sparse output, the
 streamed route (COVERM_TPU_STREAM_THRESHOLD=1) and the whole-file
-route. For the
-unsorted-BAM and missing-NM errors the exit code and the `Error:` line
-on standard error must be equal. With `--profile-dir` the TSV must equal
+route, and the read filters streamed in 16 KiB segments (metabat's
+preset and --min-read-* on the port's fused scan, a pair filter and
+COVERM_TPU_FUSED=0 on its classic reader, metabat over a two-device
+mesh). For the unsorted-BAM (also under metabat's preset) and
+missing-NM errors the exit code and the `Error:` line on standard error
+must be equal. With `--profile-dir` the TSV must equal
 the JAX package's and the port's own without the option, and each
 package must write a trace. Each pair runs its two processes side by
 side.
@@ -28,12 +31,16 @@ from coverm_tpu_torch.io.sam import sam_text_to_bam_data
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STREAMED = {"COVERM_TPU_STREAM_THRESHOLD": "1"}
 WHOLE = {"COVERM_TPU_STREAM_THRESHOLD": str(1 << 40)}
+# streamed in segments of 16 KiB, so that a sample spans several
+SEGMENTED = {**STREAMED, "COVERM_TPU_SEGMENT_BYTES": str(1 << 14)}
 
 
 def make_bam(path, n_contigs=7, contig_len=2500, n_reads=1500, seed=3,
-             unsorted=False, drop_nm=False):
+             unsorted=False, drop_nm=False, nm_hi=3, paired=False):
     """A copy of tests/test_single_device_prod.py's writer, with options
-    for the two error fixtures."""
+    for the two error fixtures, for NM drawn from 0..nm_hi - 1 (the read
+    filters' fixtures: NM 3 of 100 is below 97% identity) and for
+    consecutive reads as proper pairs."""
     rng = np.random.default_rng(seed)
     lens = np.full(n_contigs, contig_len)
     sam = [f"@SQ\tSN:g{i % 3}~c{i}\tLN:{lens[i]}" for i in range(n_contigs)]
@@ -42,12 +49,16 @@ def make_bam(path, n_contigs=7, contig_len=2500, n_reads=1500, seed=3,
     order = np.lexsort((starts, tids))
     if unsorted:  # a read of the last contig moved to the front half
         order[n_reads // 3], order[-1] = order[-1], order[n_reads // 3]
-    for j in order:
+    for rank, j in enumerate(order):
         nm = "" if (drop_nm and j % 11 == 0) else \
-            f"\tNM:i:{int(rng.integers(0, 3))}"
+            f"\tNM:i:{int(rng.integers(0, nm_hi))}"
+        name, flag, mate = f"r{j}", 0, "*\t0"
+        if paired:
+            name, flag = f"p{rank // 2}", (99, 147)[rank % 2]
+            mate = f"=\t{starts[j] + 1}"
         sam.append(
-            f"r{j}\t0\tg{tids[j] % 3}~c{tids[j]}\t{starts[j] + 1}\t60\t100M"
-            f"\t*\t0\t0\t{'A' * 100}\t*{nm}\tAS:i:100")
+            f"{name}\t{flag}\tg{tids[j] % 3}~c{tids[j]}\t{starts[j] + 1}\t60"
+            f"\t100M\t{mate}\t0\t{'A' * 100}\t*{nm}\tAS:i:100")
     with open(path, "wb") as f:
         w = bgzf.BgzfWriter(f)
         w.write(sam_text_to_bam_data(iter(sam)))
@@ -65,6 +76,12 @@ def data(tmp_path_factory):
                       n_reads=5000, seed=8),
         "unsorted": make_bam(str(d / "unsorted.bam"), unsorted=True),
         "no_nm": make_bam(str(d / "no_nm.bam"), drop_nm=True),
+        # NM 0-6 of 100: the read filters keep some reads and drop others
+        "f": make_bam(str(d / "f.bam"), n_contigs=9, contig_len=4000,
+                      n_reads=5000, seed=11, nm_hi=7),
+        "pairs": make_bam(str(d / "pairs.bam"), n_contigs=9,
+                          contig_len=4000, n_reads=5000, seed=12, nm_hi=7,
+                          paired=True),
     }
     definition = d / "genomes.tsv"
     definition.write_text("".join(f"G{i % 2}\tg{i % 3}~c{i}\n"
@@ -170,6 +187,28 @@ CASES = {
     "genome_fasta_files_whole": (
         ["genome", "-f", "{fna0}", "{fna1}", "{fna2}", "-b", "{a}", "-m",
          "relative_abundance", "mean", "covered_fraction"], WHOLE),
+    # the single-read filter inside the port's fused scan (the JAX package
+    # filters the classic batches)
+    "contig_metabat_streamed": (
+        ["contig", "-b", "{f}", "{a}", "-m", "metabat"], SEGMENTED),
+    "genome_separator_min_read_streamed": (
+        ["genome", "-s", "~", "-b", "{f}", "--min-read-percent-identity",
+         "96", "--min-read-aligned-length", "50",
+         "--min-read-aligned-percent", "90", "-m", "relative_abundance",
+         "mean", "covered_fraction", "rpkm"], SEGMENTED),
+    # a pair filter, and COVERM_TPU_FUSED=0, keep the port's classic reader
+    "contig_pair_filter_streamed": (
+        ["contig", "-b", "{pairs}", "--min-read-percent-identity-pair", "96",
+         "-m", "mean", "count", "covered_fraction"], SEGMENTED),
+    "contig_metabat_classic_streamed": (
+        ["contig", "-b", "{f}", "-m", "metabat"],
+        {**SEGMENTED, "COVERM_TPU_FUSED": "0"}),
+    # the filtered fused scan with the mesh depth_fn over two devices
+    "contig_metabat_mesh1_streamed": (
+        ["contig", "-b", "{f}", "-m", "metabat"],
+        {**SEGMENTED, "COVERM_TPU_MESH": "1",
+         "COVERM_TPU_TORCH_CPU_DEVICES": "2",
+         "XLA_FLAGS": "--xla_force_host_platform_device_count=2"}),
 }
 
 
@@ -198,6 +237,21 @@ def test_errors_equal(data, kind, route):
 
     assert error_line(err_j), err_j
     assert error_line(err_t) == error_line(err_j)
+    assert out_t == out_j
+
+
+def test_metabat_unsorted_error_equal(data):
+    """An unsorted BAM under metabat's filter preset, streamed: the
+    port's fused filtered scan refuses it as the JAX package's classic
+    route does."""
+    argv = ["contig", "-b", data["unsorted"], "-m", "metabat"]
+    (rc_j, out_j, err_j), (rc_t, out_t, err_t) = _run_pair(argv, SEGMENTED)
+    assert rc_j != 0
+    assert rc_t == rc_j
+    errors = [[line for line in err.splitlines() if line.startswith("Error:")]
+              for err in (err_j, err_t)]
+    assert errors[0] and "unsorted" in errors[0][0], err_j
+    assert errors[1] == errors[0]
     assert out_t == out_j
 
 

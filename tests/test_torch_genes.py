@@ -7,8 +7,8 @@ header, two feature types, GFF and GTF-style attributes and a gene with
 no identifier. `python -m coverm_tpu_torch` must print the JAX package's
 standard output byte for byte in contig mode and in genome mode (with a
 separator, a definition file and --single-genome), for the histogram
-methods, and for more than 65,536 genes, which takes the sweep's dense
-remap. A gene spanning a whole contig must give the contig's mean.
+methods, for more than 65,536 genes, which takes the sweep's dense
+remap, and under a single-read filter on the streamed route. A gene spanning a whole contig must give the contig's mean.
 """
 
 import numpy as np
@@ -127,6 +127,12 @@ CASES = {
     "genome_single_genome_streamed": (
         ["genome", "--gff", "{gff}", "--single-genome", "-b", "{b}", "-m",
          "mean", "covered_bases"], STREAMED),
+    # a filtered source's stream read by the gene route: the classic
+    # batches through the read filter
+    "contig_min_read_identity_streamed": (
+        ["contig", "--gff", "{gff}", "-b", "{a}", "{b}",
+         "--min-read-percent-identity", "97.5", "-m", "mean", "count",
+         "covered_fraction"], STREAMED),
     "contig_dense_remap_streamed": (
         ["contig", "--gff", "{tiny_gff}", "-b", "{tiny_bam}", "-m", "mean",
          "count", "covered_fraction"], STREAMED),
