@@ -85,6 +85,25 @@ Phases, in order; any failure exits non-zero:
      reader, every record parsed once, then the read filter). The two
      TSVs must be equal; the two pass times are printed.
 
+ 18. validate (`python -m coverm_tpu_torch.scripts.validate`, through its
+     main) over phase 4's BAM (the fused route), phase 5's genome BAM
+     (the whole-file route), a BAM of two 3 kbp contigs at 600x (deeper
+     than the histogram's 512 bins: the overflow rows of
+     DepthStats.hist_wide) and one of 400 contigs of 300 bp at 1x (some
+     with no read): exit 0, every observed contig checked; then the last
+     again with one contig's sum_depth_window one higher, through a
+     wrapped depth engine: it must name that contig and exit 1;
+ 19. profile_ingest over phase 4's BAM, one pass a stage: every stage's
+     seconds logged; the fused stage's record count must equal phase 4's
+     reads, and the e2e stage's K1 launches phase 4's;
+ 20. scaling_bench with two ranks at 500,000 reads (one rank, then two;
+     on one card they share cuda:0 over gloo): equal checksums; eff(2)
+     and the transport logged, each rank's K1 launches held against the
+     plain version;
+ 21. dp_ab_bench at 100,000 blocks a sample: the two arms bit-equal to
+     each other and to the single-device engine; on one card over four
+     logical devices of cuda:0.
+
 Phases 4 to 11 and 17 each run their command once to warm up (recording the
 kernel's inputs and the engine's batches), then once with the kernel's
 launch count set to 0 just before and read just after: it must equal the
@@ -555,6 +574,211 @@ def phase_metabat(work, dev, card):
         f"fused filtered scan {wall:.3f} s, classic reader and read filter "
         f"{classic_wall:.3f} s, TSVs equal; {card}")
     return launches, err, wall, classic_wall
+
+
+@contextlib.contextmanager
+def perturbed_depth(contig):
+    """The sweep engine, where scan.py and the fused scan call it, with
+    `contig`'s sum_depth_window one higher in the batch that holds it."""
+    from coverm_tpu_torch import scan
+    from coverm_tpu_torch.ops import sweep as S
+    orig = S.compute_depth_stats_sweep
+
+    def bump(d):
+        d.sum_depth_window[contig] += 1
+        return d
+
+    class Bumped:
+        def __init__(self, pending):
+            self._p = pending
+
+        def start_fetch(self):
+            self._p.start_fetch()
+
+        def result(self):
+            return bump(S.resolve_depth(self._p))
+
+    def engine(layout, tids, *args, **kwargs):
+        got = orig(layout, tids, *args, **kwargs)
+        if not np.any(np.asarray(tids) == contig):
+            return got
+        return Bumped(got) if kwargs.get("deferred") else bump(got)
+    for module in (S, scan):
+        module.compute_depth_stats_sweep = engine
+    try:
+        yield
+    finally:
+        for module in (S, scan):
+            module.compute_depth_stats_sweep = orig
+
+
+def run_tool(main, argv):
+    """(exit code, standard output lines, standard error) of a tool's
+    main(argv), its output captured."""
+    import io
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(argv)
+    return rc, out.getvalue().splitlines(), err.getvalue()
+
+
+def phase_validate(bams, work, card):
+    """Phase 18. Returns the K1 launches of the passing run and the
+    kernel's largest error."""
+    from coverm_tpu_torch.ops import depth as D
+    from coverm_tpu_torch.scripts import validate as V
+    from coverm_tpu_torch.synth import write_sorted_bam
+    deep = os.path.join(work, "deep.bam")
+    write_sorted_bam(deep, n_contigs=2, contig_len=3000, coverage=600, seed=5)
+    sparse = os.path.join(work, "sparse.bam")
+    sparse_tids, _, _ = write_sorted_bam(sparse, n_contigs=400,
+                                         contig_len=300, coverage=1, seed=6)
+    paths = [*bams, deep, sparse]
+    ins, overflow = [], []
+    with kernel_launches(ins), recording(D, "compute_depth_stats_numpy",
+                                         overflow, lambda a, k: None):
+        (rc, lines, said), launches = counted(lambda: run_tool(
+            V.main, [*paths, "--device", "cuda"]))
+    for line in lines:
+        log(f"[validate] {line}")
+    if rc != 0 or len(lines) != len(paths):
+        raise SystemExit(f"validate exited {rc}:\n{said[-4000:]}")
+    # every contig of the first three BAMs has reads
+    for path, line, n in zip(paths, lines,
+                             (32, 8, 2, np.unique(sparse_tids).size)):
+        if not line.startswith(f"{os.path.basename(path)}: {n} covered "
+                               "contigs checked, 0 failures "):
+            raise SystemExit(f"validate: {line!r}, {n} observed contigs")
+    if not overflow:
+        raise SystemExit("validate: the 600x BAM took no histogram overflow "
+                         "row (DepthStats.hist_wide)")
+    if launches <= 0 or launches != len(ins):
+        raise SystemExit(f"validate: {launches} K1 launches, {len(ins)} "
+                         "recorded")
+    err = max(check_kernel(f"validate launch {i}", x)
+              for i, x in enumerate(ins))
+    contig = int(sparse_tids[0])
+    with perturbed_depth(contig):
+        rc, lines, _ = run_tool(V.main, [sparse, "--device", "cuda"])
+    want = f"FAIL c{contig}: histogram mean "
+    if rc != 1 or not lines or not lines[0].startswith(want):
+        raise SystemExit(f"validate did not catch a perturbed depth: exit "
+                         f"{rc}, {lines[:2]}")
+    log(f"[validate] {len(paths)} BAMs, {launches} K1 launches, exit 0; "
+        f"with c{contig}'s depth sum one higher: exit 1, {lines[0]!r}; "
+        f"{card}")
+    return launches, err
+
+
+def phase_profile_ingest(bam, n_reads, want_launches, dev, card):
+    """Phase 19. Returns the K1 launches and the kernel's largest error,
+    and the tool's record."""
+    from coverm_tpu_torch.scripts.profile_ingest import profile
+    ins, said = [], []
+    with kernel_launches(ins):
+        res, launches = counted(lambda: profile(bam, 1, dev,
+                                                out=said.append))
+    for line in said:
+        log(f"[profile_ingest] {line}")
+    st = res["stages"]
+    if st["fused"]["records"] != n_reads:
+        raise SystemExit(f"profile_ingest: the fused stage read "
+                         f"{st['fused']['records']} records of {n_reads}")
+    for key in ("phase1", "bookkeep"):
+        if st[key]["records"] != n_reads:
+            raise SystemExit(f"profile_ingest: {key} saw "
+                             f"{st[key]['records']} records of {n_reads}")
+    if not (st["e2e"]["k1_launches"] == launches == want_launches
+            == len(ins)):
+        raise SystemExit(f"profile_ingest: the e2e stage launched K1 "
+                         f"{st['e2e']['k1_launches']} times ({launches} "
+                         f"counted), phase 4 {want_launches}")
+    err = max(check_kernel(f"profile_ingest launch {i}", x)
+              for i, x in enumerate(ins))
+    secs = {k: v["s"] for k, v in st.items()}
+    log(f"[profile_ingest] seconds {json.dumps(secs)}; prologue "
+        f"{json.dumps(res['prologue_s'])}; {card}")
+    return launches, err, res
+
+
+SCALING_CHILD = "import sys, chip_smoke; sys.exit(chip_smoke.scaling_child())"
+
+
+def scaling_child():
+    """One rank of phase 20 (a child process): scaling_bench's worker on
+    sys.argv[1:] with each K1 launch's inputs recorded, then its launch
+    count and the kernel's largest error against the plain version, as a
+    RANK_RESULT JSON line on standard error."""
+    import torch
+    from coverm_tpu_torch.ops import sweep_scan as K
+    from coverm_tpu_torch.scripts import scaling_bench
+    ins = []
+    with kernel_launches(ins):
+        rc = scaling_bench.main(sys.argv[1:])
+    torch.cuda.synchronize()
+    launches = K.sweep_scan_launches
+    err = max((check_kernel(f"scaling rank launch {i}", x)
+               for i, x in enumerate(ins)), default=0)
+    log("RANK_RESULT " + json.dumps({"launches": launches,
+                                     "recorded": len(ins),
+                                     "max_abs_err": err}))
+    return rc
+
+
+def phase_scaling(dev, card):
+    """Phase 20. Returns the K1 launches of every rank of both jobs, the
+    kernel's largest error and the tool's record."""
+    from coverm_tpu_torch.scripts import scaling_bench
+    res, stderrs = scaling_bench.run(
+        2, 500_000, dev, timeout=300,
+        cmd=[sys.executable, "-c", SCALING_CHILD, "--worker"], out=log)
+    launches, err = 0, 0
+    for said in stderrs:
+        got = [json.loads(l.split("RANK_RESULT ", 1)[1])
+               for l in said.splitlines() if "RANK_RESULT " in l]
+        if len(got) != 1 or got[0]["launches"] <= 0 \
+                or got[0]["launches"] != got[0]["recorded"]:
+            raise SystemExit(f"scaling_bench: a rank's launches {got}:\n"
+                             f"{said[-4000:]}")
+        launches += got[0]["launches"]
+        err = max(err, got[0]["max_abs_err"])
+    if err != 0:
+        raise SystemExit(f"scaling_bench: K1 disagrees with its plain "
+                         f"version: max_abs_err={err}")
+    log(f"[scaling] eff(2) {res['efficiency']} ({res['rps_1proc']} reads/s "
+        f"on one rank, {res['rps_2proc']} on two), transport "
+        f"{res['transport']}, {res['rank_devices']}, checksum "
+        f"{res['checksum']} on both; {card}")
+    return launches, err, res
+
+
+def phase_dp_ab(dev, card):
+    """Phase 21. Returns the K1 launches, the kernel's largest error and
+    the tool's record."""
+    from coverm_tpu_torch.ops.sweep import compute_depth_stats_sweep
+    from coverm_tpu_torch.scripts import dp_ab_bench
+    ins, said = [], []
+    with kernel_launches(ins):
+        (res, ra, _), launches = counted(lambda: dp_ab_bench.run(
+            100_000, 3, dev, out=said.append))
+    for line in said:
+        log(f"[dp_ab] {line}")
+    layout, samples = dp_ab_bench.make_samples(100_000)
+    for s, (t, st, en) in enumerate(samples):
+        one = compute_depth_stats_sweep(layout, t, st, en,
+                                        trim=dp_ab_bench.TRIM, device=dev)
+        for f in dp_ab_bench.FIELDS:
+            if not np.array_equal(getattr(ra[s], f), getattr(one, f)):
+                raise SystemExit(f"dp_ab: sample {s}'s {f} differs from "
+                                 "the single-device engine's")
+    if launches <= 0 or launches != len(ins):
+        raise SystemExit(f"dp_ab: {launches} K1 launches, {len(ins)} "
+                         "recorded")
+    err = max(check_kernel(f"dp_ab launch {i}", x)
+              for i, x in enumerate(ins))
+    log(f"[dp_ab] stacked/thread {res['stacked_over_thread']} "
+        f"({res['verdict']}); {card}")
+    return launches, err, res
 
 
 def phase_mesh(lengths, truth, want, dev, card):
@@ -1064,6 +1288,31 @@ def main():
         (launches_by_path["metabat"], mb_err, mb_fused_s,
          mb_classic_s) = phase_metabat(work, dev, card)
         phase_s["metabat"] = time.perf_counter() - t0
+
+        # ---- 18. validate
+        t0 = time.perf_counter()
+        launches_by_path["validate"], v_err = phase_validate(
+            [bam, gbam], work, card)
+        phase_s["validate"] = time.perf_counter() - t0
+
+        # ---- 19. profile_ingest over the bench BAM
+        t0 = time.perf_counter()
+        (launches_by_path["profile_ingest"], pi_err,
+         profile_res) = phase_profile_ingest(bam, n_reads, launches, dev,
+                                             card)
+        phase_s["profile_ingest"] = time.perf_counter() - t0
+
+        # ---- 20. scaling_bench, two ranks
+        t0 = time.perf_counter()
+        (launches_by_path["scaling_bench"], sc_err,
+         scaling_res) = phase_scaling(dev, card)
+        phase_s["scaling_bench"] = time.perf_counter() - t0
+
+        # ---- 21. dp_ab_bench
+        t0 = time.perf_counter()
+        (launches_by_path["dp_ab_bench"], ab_err,
+         dp_ab_res) = phase_dp_ab(dev, card)
+        phase_s["dp_ab_bench"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"[phases] seconds: {json.dumps(phase_s)}")
@@ -1077,7 +1326,8 @@ def main():
         "launches": launches,
         "launches_by_path": launches_by_path,
         "max_abs_err": max(err, g_err, c_err, f_err, s_err, d_err, p_err,
-                           fc_err, m_err, fm_err, mp_err, mc_err, mb_err),
+                           fc_err, m_err, fm_err, mp_err, mc_err, mb_err,
+                           v_err, pi_err, sc_err, ab_err),
         "multi_card": multi_card,
         "multi_card_wall_s": mc_wall,
         "ms": kernel_ms,
@@ -1106,6 +1356,12 @@ def main():
         "multiprocess_wall_s": mp_wall,
         "metabat_fused_filtered_s": mb_fused_s,
         "metabat_classic_s": mb_classic_s,
+        "profile_ingest_s": {k: v["s"] for k, v in
+                             profile_res["stages"].items()},
+        "profile_ingest_prologue_s": profile_res["prologue_s"],
+        "scaling_efficiency_2": scaling_res["efficiency"],
+        "scaling_transport": scaling_res["transport"],
+        "dp_ab_stacked_over_thread": dp_ab_res["stacked_over_thread"],
         "phase_s": phase_s,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,455 @@
+"""Profile the host BAM ingest stage by stage, then the whole pass with
+the sweep engine on the device.
+
+Times, on one BAM, each stage as the best of --reps passes:
+
+  bgzf scan         - io/native.bgzf_scan: the block table
+  inflate           - bgzf_inflate_blocks, at the thread count that
+                      ingest_scan takes (min(cpu_count + 1, 8))
+  phase1            - ct_parse_phase1: the sequential record walk
+  full parse        - io/bam.parse_records (parse_records_full): phase 1
+                      and the parallel decode into a RecordBatch
+  stats scan alone  - stats_scan on inflated data, at ingest_scan's thread
+                      count: the fused call less the inflate
+  bookkeep          - scan.scan_sample with the depth engine stubbed
+  stream            - io/bam.BamStreamReader: inflate and parse, prefetched
+  fused             - ingest_scan over the FusedScanStream plan, one
+                      native call a segment (stream open included)
+  e2e, stubbed      - io/fastscan.scan_sample_fused with the depth engine
+                      stubbed: bench_torch/run.py's ingest_s
+  e2e               - the same with the sweep engine on the device; the
+                      sweep-scan kernel's launches are counted
+
+The inflate to bookkeep stages go segment by segment, over the
+FusedScanStream's own segments (COVERM_TPU_SEGMENT_BYTES, 256 MiB by
+default), and sum over them: the file is never inflated whole. In the e2e
+pass the host prologue of each engine batch (ops/sweep.prep_segments,
+choose_payload, encode_start_deltas, _pack_u8) is timed where it runs,
+and the pageable upload of each batch's buffer (`torch.from_numpy(buf)
+.to(device)`) is replayed after the pass, one synchronised copy at a
+time. Beside each stage stands its peak host RSS: the largest resident
+set (VmRSS) that a thread reading /proc/self/status every 10 ms saw
+while the stage ran (the high-water mark VmHWM cannot be reset on every
+machine, and getrusage's ru_maxrss never can).
+
+Run: python -m coverm_tpu_torch.scripts.profile_ingest [bam] [--reps 3]
+         [--device cpu]
+Without a BAM it writes the bench BAM (synth.write_sorted_bam's
+defaults: 32 contigs x 1 Mbp at 20x, 150 bp reads) in a temporary
+directory. Ends with one JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import os
+import sys
+import tempfile
+import threading
+import time
+
+import numpy as np
+import torch
+
+from .common import add_device_arg, result_line
+
+EE = 75
+TRIM = (0.05, 0.95)
+STAGES = [("bgzf_scan", "bgzf scan"), ("inflate", "inflate"),
+          ("phase1", "phase1 (seq walk)"),
+          ("full_parse", "phase1+phase2 (full parse)"),
+          ("stats_scan", "stats scan alone"),
+          ("bookkeep", "bookkeep (scan_sample-dev)"),
+          ("stream", "stream (inflate+parse)"),
+          ("fused", "fused one-call ingest"),
+          ("e2e_stub", "e2e, depth stubbed"), ("e2e", "e2e, sweep engine")]
+SEGMENTED = ("inflate", "phase1", "full_parse", "stats_scan", "bookkeep")
+PROLOGUE = ("prep_segments", "choose_payload", "encode_start_deltas",
+            "_pack_u8")
+
+
+def rss_bytes() -> int:
+    """This process's resident set now (VmRSS; 0 without /proc)."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return 0
+
+
+class RssPeak:
+    """The largest rss_bytes() seen every `every` seconds, by a thread,
+    between entering and leaving the context."""
+
+    def __init__(self, every=0.01):
+        self.every = every
+        self.peak = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._watch, daemon=True)
+
+    def _watch(self):
+        while True:
+            self.peak = max(self.peak, rss_bytes())
+            if self._stop.wait(self.every):
+                return
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, rss_bytes())
+        return False
+
+
+def ingest_threads() -> int:
+    """The thread count ingest_scan takes by default (io/native.py)."""
+    return min((os.cpu_count() or 1) + 1, 8)
+
+
+def segment_groups(stream):
+    """The plan's BGZF block ranges [(i, k)]: the header probe's blocks,
+    then groups of about stream.target_bytes inflated, cut as
+    io/fastscan.scan_sample_fused cuts its segments."""
+    _mm, _off, _csz, usz, _carry, j = stream._plan
+    cum = np.cumsum(usz)
+    groups, i, n = [(0, j)], j, usz.size
+    while i < n:
+        base = int(cum[i - 1]) if i else 0
+        k = int(np.searchsorted(cum, base + stream.target_bytes)) + 1
+        k = min(max(k, i + 1), n)
+        groups.append((i, k))
+        i = k
+    return groups
+
+
+def _stub(layout, *_, **kw):
+    """A depth engine that drops its blocks: a finished, empty result."""
+    from ..ops.sweep import _EmptyPending
+    return _EmptyPending(layout.n_contigs, kw.get("need_hist", False),
+                         kw.get("trim"))
+
+
+def _open(path):
+    from ..io.fastscan import FusedScanStream
+    stream = FusedScanStream(path)
+    header = stream.open()
+    if stream._plan is None:
+        raise ValueError(f"{path} is not a BGZF BAM the native ingest plans")
+    return stream, header
+
+
+def segmented_pass(path):
+    """One pass of the inflate to bookkeep stages over the plan's
+    segments: (seconds by stage, counts by stage)."""
+    from ..flags import FlagFilter
+    from ..io import native
+    from ..io.bam import parse_records
+    from ..ops.depth import ReferenceLayout
+    from ..scan import scan_sample
+
+    stream, header = _open(path)
+    mm, off, csz, usz, probe_rest, j = stream._plan
+    hdr_end = int(usz[:j].sum()) - probe_rest.size
+    lib = native.get_lib()
+    ff = FlagFilter()
+    skip, req = ff.masks()
+    layout = ReferenceLayout.build(header.target_lens, EE)
+    acc = native.StatsAccum(header.n_ref)
+    nt = ingest_threads()
+    secs = dict.fromkeys(SEGMENTED, 0.0)
+    n = {"bytes": 0, "phase1": 0, "records": 0, "blocks": 0,
+         "stats_records": 0, "stats_blocks": 0, "bookkeep": 0,
+         "segments": 0}
+    carry = np.empty(0, np.uint8)
+    for i, k in segment_groups(stream):
+        if k <= i:
+            continue
+        t0 = time.perf_counter()
+        seg = native.bgzf_inflate_blocks(mm, off[i:k], csz[i:k], usz[i:k],
+                                         n_threads=nt)
+        secs["inflate"] += time.perf_counter() - t0
+        if seg is None:
+            raise ValueError(f"BGZF inflate failed in {path}")
+        n["bytes"] += seg.size
+        n["segments"] += 1
+        if i == 0:
+            buf, start = seg, hdr_end
+        else:
+            buf = np.concatenate([carry, seg]) if carry.size else seg
+            start = 0
+
+        t0 = time.perf_counter()
+        est = (buf.size - start) // 36 + 16  # a record is 37 bytes or more
+        rec_off = np.empty(est, np.int64)
+        nblocks = np.empty(est, np.int64)
+        got = lib.ct_parse_phase1(native._u8p(buf), buf.size, start, est,
+                                  native._i64p(rec_off),
+                                  native._i64p(nblocks))
+        secs["phase1"] += time.perf_counter() - t0
+        n["phase1"] += int(got)
+
+        t0 = time.perf_counter()
+        batch, parsed_to = parse_records(buf, start)
+        secs["full_parse"] += time.perf_counter() - t0
+        n["records"] += batch.n_records
+        n["blocks"] += batch.block_read.size
+
+        before = acc.n_records
+        t0 = time.perf_counter()
+        bt, _bs, _be, _counts, end_off = native.stats_scan(
+            buf, start, acc, skip, req, n_threads=nt)
+        secs["stats_scan"] += time.perf_counter() - t0
+        n["stats_records"] += acc.n_records - before
+        n["stats_blocks"] += bt.size
+        if end_off != parsed_to:
+            raise ValueError(f"stats scan and full parse end at {end_off} "
+                             f"and {parsed_to}")
+
+        t0 = time.perf_counter()
+        scan_sample(header, batch, layout, ff, False, depth_fn=_stub)
+        secs["bookkeep"] += time.perf_counter() - t0
+        n["bookkeep"] += batch.n_records
+        carry = buf[parsed_to:].copy()
+        del buf, seg, batch
+    if carry.size:
+        raise ValueError(f"{path} ends inside a record ({carry.size} "
+                         "bytes left)")
+    return secs, n
+
+
+def fused_pass(path):
+    """ingest_scan over the plan, as io/fastscan.scan_sample_fused calls
+    it (the bytes left after the last call through stats_scan):
+    (records, blocks)."""
+    from ..flags import FlagFilter
+    from ..io import native
+
+    stream, header = _open(path)
+    mm, off, csz, usz, carry, _j = stream._plan
+    skip, req = FlagFilter().masks()
+    stats = native.StatsAccum(header.n_ref)
+    blocks = 0
+    for i, k in segment_groups(stream)[1:]:
+        bt, _bs, _be, _counts, carry = native.ingest_scan(
+            mm, off[i:k], csz[i:k], usz[i:k], carry, 0, stats, skip, req)
+        blocks += bt.size
+    if carry is not None and len(carry):
+        res = native.stats_scan(np.ascontiguousarray(carry), 0, stats, skip,
+                                req)
+        blocks += res[0].size
+    return stats.n_records, blocks
+
+
+def e2e_pass(path, device=None):
+    """io/fastscan.scan_sample_fused over the BAM: with the sweep engine
+    on `device`, or with it stubbed when device is None. Returns (mapped
+    reads counted, blocks given to the stub, None with the engine)."""
+    from ..flags import FlagFilter
+    from ..io.fastscan import scan_sample_fused
+    from ..ops.depth import ReferenceLayout
+
+    stream, header = _open(path)
+    layout = ReferenceLayout.build(header.target_lens, EE)
+    blocks = None if device is not None else 0
+
+    def counting_stub(layout, bt, *a, **kw):
+        nonlocal blocks
+        blocks += bt.size
+        return _stub(layout, **kw)
+
+    if device is None:
+        scan = scan_sample_fused(header, stream, layout, FlagFilter(), False,
+                                 trim=TRIM, depth_fn=counting_stub)
+    else:
+        scan = scan_sample_fused(header, stream, layout, FlagFilter(), False,
+                                 trim=TRIM, device=device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    return int(scan.reads_all.sum()), blocks
+
+
+@contextlib.contextmanager
+def prologue_timers(totals, bufs):
+    """Time each PROLOGUE function of ops.sweep into totals[name] where
+    compute_depth_stats_sweep calls it, and keep every buffer _pack_u8
+    returns in bufs."""
+    from ..ops import sweep as S
+    origs = {name: getattr(S, name) for name in PROLOGUE}
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            totals[name] += time.perf_counter() - t0
+            if name == "_pack_u8":
+                bufs.append(out)
+            return out
+        return run
+    for name, fn in origs.items():
+        setattr(S, name, timed(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in origs.items():
+            setattr(S, name, fn)
+
+
+def upload_s(bufs, device) -> float:
+    """Seconds of the pageable uploads of bufs, one synchronised copy at
+    a time."""
+    cuda = device.type == "cuda"
+    total = 0.0
+    for buf in bufs:
+        if cuda:
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        torch.from_numpy(buf).to(device)
+        if cuda:
+            torch.cuda.synchronize(device)
+        total += time.perf_counter() - t0
+    return total
+
+
+def profile(path, reps=3, device=None, out=print):
+    """Every stage of the module docstring over the BAM at `path`, each
+    the best of `reps` passes; prints one line a stage and returns the
+    record of them all."""
+    from ..device import resolve_device
+    from ..io import native
+    from ..io.bam import BamStreamReader
+    from ..ops import sweep_scan as K
+
+    dev = resolve_device(device)
+    if native.get_lib() is None:
+        raise RuntimeError("the native ingest library is off "
+                           "(COVERM_TPU_NO_NATIVE); nothing to profile")
+    stages = {}
+
+    rss_at_start = rss_bytes()
+
+    def best(key, fn):
+        times, got = [], None
+        with RssPeak() as rss:
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                got = fn()
+                times.append(time.perf_counter() - t0)
+        stages[key] = {"s": min(times), "peak_rss_bytes": rss.peak}
+        return got
+
+    size = os.path.getsize(path)
+    seg_bytes = _open(path)[0].target_bytes
+    out(f"file: {path} ({size / 1e6:.0f} MB compressed)")
+    mm = np.memmap(path, np.uint8, mode="r")
+    off, _csz, usz = best("bgzf_scan", lambda: native.bgzf_scan(mm))
+    stages["bgzf_scan"]["bgzf_blocks"] = int(off.size)
+    del mm
+
+    with RssPeak() as rss:  # of the five stages together
+        seg = [segmented_pass(path) for _ in range(reps)]
+    counts = seg[-1][1]
+    for key in SEGMENTED:
+        stages[key] = {"s": min(s[key] for s, _ in seg),
+                       "peak_rss_bytes": rss.peak}
+    stages["inflate"].update(bytes=counts["bytes"],
+                             segments=counts["segments"],
+                             threads=ingest_threads())
+    stages["phase1"]["records"] = counts["phase1"]
+    stages["full_parse"].update(records=counts["records"],
+                                blocks=counts["blocks"])
+    stages["stats_scan"].update(records=counts["stats_records"],
+                                blocks=counts["stats_blocks"],
+                                threads=ingest_threads())
+    stages["bookkeep"]["records"] = counts["bookkeep"]
+
+    def stream():
+        _, gen = BamStreamReader(path, target_bytes=seg_bytes).read()
+        return sum(b.n_records for b in gen)
+    stages["stream"]["records"] = best("stream", stream)
+
+    rec, blk = best("fused", lambda: fused_pass(path))
+    stages["fused"].update(records=rec, blocks=blk)
+    rec, blk = best("e2e_stub", lambda: e2e_pass(path))
+    stages["e2e_stub"].update(mapped_reads=rec, blocks=blk)
+
+    per_rep, launches = [], set()
+
+    def e2e():
+        totals, bufs = dict.fromkeys(PROLOGUE, 0.0), []
+        with prologue_timers(totals, bufs):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            K.sweep_scan_launches = 0
+            t0 = time.perf_counter()
+            rec, _ = e2e_pass(path, dev)
+            wall = time.perf_counter() - t0
+            launches.add(K.sweep_scan_launches)
+        totals["upload"] = upload_s(bufs, dev)
+        totals["batches"] = len(bufs)
+        per_rep.append((wall, totals))
+        return rec
+    with RssPeak() as rss:
+        rec = [e2e() for _ in range(reps)][-1]
+    if len(launches) != 1:
+        raise RuntimeError(f"the e2e passes launched the sweep-scan kernel "
+                           f"{sorted(launches)} times")
+    stages["e2e"] = {"s": min(w for w, _ in per_rep), "mapped_reads": rec,
+                     "k1_launches": launches.pop(), "device": str(dev),
+                     "peak_rss_bytes": rss.peak}
+    prologue = {name: min(t[name] for _, t in per_rep)
+                for name in (*PROLOGUE, "upload")}
+    prologue["total"] = sum(prologue.values())
+    prologue["batches"] = per_rep[-1][1]["batches"]
+
+    for key, label in STAGES:
+        st = stages[key]
+        said = ", ".join(f"{k} {v}" for k, v in st.items()
+                         if k not in ("s", "peak_rss_bytes"))
+        out(f"{label:26s} {st['s']:7.3f}s  peak RSS "
+            f"{st['peak_rss_bytes'] / 1e9:.2f} GB  {said}")
+    split = {"inflate_s": stages["inflate"]["s"],
+             "stats_scan_s": stages["stats_scan"]["s"],
+             "inflate_plus_stats_scan_s": (stages["inflate"]["s"]
+                                           + stages["stats_scan"]["s"]),
+             "fused_s": stages["fused"]["s"]}
+    out(f"inflate + stats scan alone {split['inflate_plus_stats_scan_s']:.3f}"
+        f" s against the fused call's {split['fused_s']:.3f} s")
+    out("host prologue a pass: " + ", ".join(
+        f"{k} {v:.4f} s" for k, v in prologue.items() if k != "batches")
+        + f" over {prologue['batches']} batches")
+    return {"bam": path, "bam_bytes": size, "reps": reps,
+            "segment_bytes": seg_bytes,
+            "stages": stages, "split": split, "prologue_s": prologue,
+            "rss_at_start_bytes": rss_at_start}
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(
+        description=__doc__.split("\n\n")[0])
+    p.add_argument("bam", nargs="?", default=None,
+                   help="a sorted BGZF BAM (default: write the bench BAM)")
+    p.add_argument("--reps", type=int, default=3)
+    add_device_arg(p)
+    args = p.parse_args(argv)
+    from ..device import resolve_device
+    dev = resolve_device(args.device)
+    with tempfile.TemporaryDirectory() as work:
+        path = args.bam
+        if path is None:
+            from ..synth import write_sorted_bam
+            path = os.path.join(work, "bench.bam")
+            write_sorted_bam(path)
+        res = profile(path, args.reps, dev)
+    print(result_line(dev, tool="profile_ingest", **res))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -66,6 +66,41 @@ def test_no_source_imports_jax_or_the_jax_package():
     assert not bad, bad
 
 
+def test_the_tools_are_inside_the_boundary():
+    """coverm_tpu_torch/scripts/ is a subpackage, so the walk above covers
+    the four tools."""
+    tools = {os.path.basename(p) for p in _sources()
+             if os.path.dirname(p) == os.path.join(PKG, "scripts")}
+    assert {"__init__.py", "profile_ingest.py", "validate.py",
+            "scaling_bench.py", "dp_ab_bench.py"} <= tools
+
+
+TOOL_CHECK = """
+import sys
+from coverm_tpu_torch.scripts import {tool}
+rc = {tool}.main(sys.argv[1:])
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "jaxlib", "coverm_tpu")
+             or m.startswith(("jax.", "jaxlib.", "coverm_tpu.")))
+print("RC", rc, "LOADED", bad)
+"""
+
+
+@pytest.mark.parametrize("tool,args", [
+    ("validate", ["{bam}"]),
+    ("profile_ingest", ["{bam}", "--reps", "1"]),
+    ("dp_ab_bench", ["--blocks", "2000", "--reps", "1"])])
+def test_tool_runs_load_no_jax(tmp_path, tool, args):
+    bam = _bam(str(tmp_path / "x.bam"))
+    proc = subprocess.run(
+        [sys.executable, "-c", TOOL_CHECK.format(tool=tool),
+         *(a.format(bam=bam) for a in args), "--device", "cpu"],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+        env=_env(COVERM_TPU_TORCH_CPU_DEVICES="2"))
+    assert proc.returncode == 0, proc.stderr
+    assert "RC 0 LOADED []" in proc.stdout, proc.stdout + proc.stderr
+
+
 def _bam(path):
     sam = ["@SQ\tSN:c0\tLN:3000", "@SQ\tSN:c1\tLN:2000"]
     for j in range(200):
