@@ -6,8 +6,9 @@
 Phases, in order; any failure exits non-zero:
 
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build: the sweep-scan kernel (csrc/sweep_scan.cu, nvcc for sm_90a)
-     and the native BAM ingest library, both from this checkout;
+  2. build: the sweep-scan and BGZF inflate kernels (csrc/sweep_scan.cu,
+     csrc/bgzf_inflate.cu, nvcc for sm_90a) and the native BAM ingest
+     library, all from this checkout and started together;
   3. kernel vs plain version on an adversarial case: blocks given to the
      sweep engine on the card, the kernel's inputs (sorted keys, length
      table) taken from the engine's own launch and held against
@@ -17,9 +18,11 @@ Phases, in order; any failure exits non-zero:
      reads, ~4.27 M reads) as a sorted BGZF BAM, through the port's CLI
      `contig -b ... -m mean trimmed_mean variance covered_fraction` on
      the card: a warm-up run that records the inputs of every kernel
-     launch and every engine batch, then a run with the kernel's launch
-     count set to 0 just before and read just after (one launch per
-     engine batch), and the peak device memory of that run; the TSV must
+     launch and every engine batch, then a run with the kernels' launch
+     counts set to 0 just before and read just after (one K1 launch per
+     engine batch, one inflate launch per BGZF segment: the fused ingest
+     inflates on the card), and the peak device memory of that run; the
+     TSV must
      equal the same command on the CPU (the plain path) and the per-contig
      statistics the numpy oracle's. The kernel is then held against its
      plain version on each recorded launch and timed there with CUDA
@@ -95,7 +98,8 @@ Phases, in order; any failure exits non-zero:
      wrapped depth engine: it must name that contig and exit 1;
  19. profile_ingest over phase 4's BAM, one pass a stage: every stage's
      seconds logged; the fused stage's record count must equal phase 4's
-     reads, and the e2e stage's K1 launches phase 4's;
+     reads, and the e2e stage's K1 and inflate launches phase 4's; the
+     card inflate stage launches once a segment;
  20. scaling_bench with two ranks at 500,000 reads (one rank, then two;
      on one card they share cuda:0 over gloo): equal checksums; eff(2)
      and the transport logged, each rank's K1 launches held against the
@@ -103,11 +107,22 @@ Phases, in order; any failure exits non-zero:
  21. dp_ab_bench at 100,000 blocks a sample: the two arms bit-equal to
      each other and to the single-device engine; on one card over four
      logical devices of cuda:0.
+ 22. the BGZF inflate kernel (ops/bgzf_inflate.py) byte for byte against
+     the host's ct_bgzf_inflate on eight adversarial BGZF streams (zlib
+     levels 0, 1, 6, 9, Z_FIXED, Z_HUFFMAN_ONLY, Z_RLE, and Huffman-coded
+     blocks followed by stored ones) and on phase 4's BAM segment by
+     segment, where it must also equal its plain version (the largest
+     byte difference is the kernels line's max_abs_err); six corrupt
+     blocks must be flagged, and one inside a BAM must raise through the
+     card route; the whole-BAM inflate rate and the kernel's ms a segment
+     (CUDA events) beside its plain version and a 256 MiB pinned d2h
+     copy.
 
 Phases 4 to 11 and 17 each run their command once to warm up (recording the
-kernel's inputs and the engine's batches), then once with the kernel's
-launch count set to 0 just before and read just after: it must equal the
-number of engine batches and be above 0. They run with COVERM_TPU_MESH=0,
+kernel's inputs and the engine's batches), then once with the kernels'
+launch counts set to 0 just before and read just after: K1's must equal
+the number of engine batches and be above 0, the inflate's the number of
+BGZF segments of a streamed BAM (phases 4 and 17), 0 on the other routes. They run with COVERM_TPU_MESH=0,
 so that on a machine with several cards they still take the single-card
 engine; phases 13-16 drive the multi-device engines. Mapping from reads and `makedb`
 are not driven here: they need a mapper binary, which this script does
@@ -115,9 +130,9 @@ not assume. `cluster` runs on the host only and needs no card. The CPU
 tests hold all three against the JAX package (with tests/fake_mapper.py
 and fake skani and fastANI executables).
 
-Prints the card line, then one {"kernels": [...]} JSON line (with the
-launch count of every path, and with two or more cards phase 16's wall
-seconds under "multi_card_wall_s"), then the {"ok": true, "device":
+Prints the card line, then one {"kernels": [...]} JSON line (K1 and the
+inflate kernel, each with the launch count of every path, and with two
+or more cards phase 16's wall seconds under "multi_card_wall_s"), then the {"ok": true, "device":
 {...}} JSON line last.
 """
 
@@ -164,6 +179,13 @@ KERNEL_OPS_PER_EVENT = sum((
     2 * 3,  # sq_w: two multiplies, add (int64)
     1 + 2 * 3,  # minpay: w > 0 test, sub, select, max (int64)
 ))
+
+
+# the inflate kernel's launches of each path driven, by drive()'s label
+INFLATE_LAUNCHES = {}
+# the adversarial BGZF streams of phase 22: (zlib level, strategy)
+INFLATE_STREAMS = [(0, 0), (1, 0), (6, 0), (9, 0), (6, 4), (6, 2), (6, 3)]
+PCIE_GEN5_X16_BYTES_PER_S = 63e9  # one direction, published
 
 
 def log(msg):
@@ -324,6 +346,7 @@ def drive(label, argv, work, dev, keep=False):
     bytes and the kernel's largest error, and (keep=True) the recorded
     launch inputs and batches."""
     import torch
+    from coverm_tpu_torch.ops import bgzf_inflate as B
     from coverm_tpu_torch.ops import sweep_scan as K
     launches_in, batches = [], []
     with kernel_launches(launches_in), engine_batches(batches):
@@ -332,11 +355,13 @@ def drive(label, argv, work, dev, keep=False):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K.sweep_scan_launches = 0
+    B.bgzf_inflate_launches = 0
     t0 = time.perf_counter()
     tsv = run_cli(argv, os.path.join(work, f"{label}_gpu.tsv"), dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = K.sweep_scan_launches
+    INFLATE_LAUNCHES[label] = B.bgzf_inflate_launches
     peak = torch.cuda.max_memory_allocated()
     if launches <= 0:
         raise SystemExit(f"{label}: the path did not launch the sweep-scan "
@@ -346,7 +371,8 @@ def drive(label, argv, work, dev, keep=False):
                          f"its warm-up {len(launches_in)} over {n_batches} "
                          "engine batches")
     log(f"[{label}] {launches} kernel launches over {n_batches} engine "
-        f"batches; {wall:.3f} s")
+        f"batches, {INFLATE_LAUNCHES[label]} inflate launches; "
+        f"{wall:.3f} s")
     err = max(check_kernel(f"{label} launch {i}", ins)
               for i, ins in enumerate(launches_in))
     if keep:
@@ -688,6 +714,15 @@ def phase_profile_ingest(bam, n_reads, want_launches, dev, card):
         if st[key]["records"] != n_reads:
             raise SystemExit(f"profile_ingest: {key} saw "
                              f"{st[key]['records']} records of {n_reads}")
+    if st["e2e"]["inflate_launches"] != INFLATE_LAUNCHES["contig"] or \
+            st["card_inflate"]["launches"] != st["card_inflate"]["segments"] \
+            or st["e2e_stub"]["route"] != "card" \
+            or "card_wait_s" not in st["e2e_stub"]:
+        raise SystemExit(f"profile_ingest: the card stages launched the "
+                         f"inflate {st['e2e']['inflate_launches']} and "
+                         f"{st['card_inflate']['launches']} times over "
+                         f"{st['card_inflate']['segments']} segments; the "
+                         f"stubbed pass: {st['e2e_stub']}")
     if not (st["e2e"]["k1_launches"] == launches == want_launches
             == len(ins)):
         raise SystemExit(f"profile_ingest: the e2e stage launched K1 "
@@ -1045,6 +1080,286 @@ def phase_multi_card(bam, tsv_want, work, dev, card):
     return out, err
 
 
+def bgzf_member(raw, level, strategy):
+    """One BGZF member of raw, or None when it would pass 64 KiB."""
+    import struct
+    import zlib
+    c = zlib.compressobj(level, zlib.DEFLATED, -15, 9, strategy)
+    body = c.compress(raw) + c.flush()
+    if len(body) + 26 > 65536:
+        return None
+    return struct.pack("<BBBBIBBHBBHH", 0x1F, 0x8B, 8, 4, 0, 0, 0xFF, 6,
+                       ord("B"), ord("C"), 2, len(body) + 25) + body + \
+        struct.pack("<II", zlib.crc32(raw), len(raw))
+
+
+def adversarial_bgzf(path, level, strategy):
+    """A BGZF file whose blocks take every DEFLATE path (empty, one byte,
+    runs with overlapping copies, random bytes, DNA text with repeats up
+    to 32 KiB back, a 64 KiB block), the empty EOF member last."""
+    from coverm_tpu_torch.io.bgzf import BGZF_EOF
+    rng = np.random.default_rng(0)
+    text = bytes(np.frombuffer(b"ACGT", np.uint8)[
+        rng.integers(0, 4, 9000)])
+    raws = [b"", b"\x07", b"A" * 65280, b"xy" * 32640,
+            bytes(rng.integers(0, 256, 65280, dtype=np.uint8)),
+            (text * 8)[:65280],
+            text[:3000] + bytes(rng.integers(0, 256, 30000, dtype=np.uint8))
+            + text[:3000], bytes(rng.integers(60, 75, 40000, dtype=np.uint8)),
+            b"\x00" * 65536]
+    raws += [bytes(rng.integers(0, 3, n, dtype=np.uint8))
+             for n in (2, 3, 31, 257, 259, 4096)]
+    with open(path, "wb") as f:
+        for raw in raws:
+            m = bgzf_member(raw, level, strategy)
+            if m is not None:
+                f.write(m)
+        f.write(BGZF_EOF)
+
+
+def huffman_then_stored_bgzf(path):
+    """A BGZF file of blocks that each hold a Huffman-coded block (DNA
+    text, literals only) and then stored blocks (a full flush's empty
+    one, then 5,000 random bytes): the stored header steps back over the
+    bytes in the decoder's bit buffer. The text's length runs over 64
+    values, so the Huffman block ends at every offset modulo 16, near the
+    end of the staged payload, with more than 4 KiB to follow."""
+    import struct
+    import zlib
+    from coverm_tpu_torch.io.bgzf import BGZF_EOF
+    rng = np.random.default_rng(2)
+    text = bytes(np.frombuffer(b"ACGT", np.uint8)[
+        rng.integers(0, 4, 13064)])
+    tail = bytes(rng.integers(0, 256, 5000, dtype=np.uint8))
+    with open(path, "wb") as f:
+        for n in range(13000, 13064):
+            c = zlib.compressobj(6, zlib.DEFLATED, -15, 9,
+                                 zlib.Z_HUFFMAN_ONLY)
+            body = c.compress(text[:n]) + c.flush(zlib.Z_FULL_FLUSH) \
+                + c.compress(tail) + c.flush()
+            raw = text[:n] + tail
+            f.write(struct.pack("<BBBBIBBHBBHH", 0x1F, 0x8B, 8, 4, 0, 0,
+                                0xFF, 6, ord("B"), ord("C"), 2,
+                                len(body) + 25) + body
+                    + struct.pack("<II", zlib.crc32(raw), len(raw)))
+        f.write(BGZF_EOF)
+
+
+def byte_err(a, b):
+    """The largest absolute difference of two byte arrays; 256 when their
+    lengths differ."""
+    if a.shape != b.shape:
+        return 256
+    return int((np.maximum(a, b) - np.minimum(a, b)).max(initial=0))
+
+
+def plain_inflate(mm, off, csz, usz):
+    """The kernel's plain version over one segment's blocks: (bytes, ms
+    of the inflate)."""
+    import torch
+    from coverm_tpu_torch.ops import bgzf_inflate as B
+    comp = np.concatenate([np.ascontiguousarray(mm[off[0]:off[-1] + csz[-1]]),
+                           np.zeros(B.PAD, np.uint8)])
+    table = B.block_table(comp, off - off[0], csz, usz)
+    out = torch.empty(int(usz.sum()), dtype=torch.uint8)
+    status = torch.empty(off.size, dtype=torch.int32)
+    t0 = time.perf_counter()
+    B.bgzf_inflate_reference(torch.from_numpy(comp), torch.from_numpy(table),
+                             out, status)
+    ms = (time.perf_counter() - t0) * 1e3
+    if status.any():
+        raise SystemExit("the plain inflate failed on phase 4's BAM")
+    return out.numpy(), ms
+
+
+def corrupt_members():
+    """(label, member, ISIZE) of blocks the inflate must reject."""
+    import struct
+    rng = np.random.default_rng(1)
+    raw = bytes(rng.integers(0, 4, 20000, dtype=np.uint8) + 65)
+    good = bgzf_member(raw, 6, 0)
+    bad_type = bytearray(good)
+    bad_type[18] |= 0x06
+    body = good[18:-8][:(len(good) - 26) // 2]
+    cut = good[:16] + struct.pack("<H", len(body) + 25) + body + good[-8:]
+    # fixed Huffman: 'A', then a match at distance 2 after one byte
+    bits = [1, 1, 0] + [(0x71 >> (7 - i)) & 1 for i in range(8)] + \
+        [0] * 6 + [1] + [0] * 4 + [1] + [0] * 7
+    acc = sum(b << i for i, b in enumerate(bits))
+    body = acc.to_bytes((len(bits) + 7) // 8, "little")
+    far = good[:16] + struct.pack("<H", len(body) + 25) + body + \
+        struct.pack("<II", 0, 4)
+    return [("block type 3", bytes(bad_type), len(raw)),
+            ("payload cut short", cut, len(raw)),
+            ("distance too far back", far, 4),
+            ("ISIZE one more", good, len(raw) + 1),
+            ("ISIZE one less", good, len(raw) - 1),
+            ("ISIZE over 65536", bgzf_member(b"\x00" * 70000, 9, 0), 70000)]
+
+
+def inflate_on_card(comp, table, out_size, dev):
+    """The kernel over one block table, pinned buffers in and out, the
+    output at an unaligned address: (bytes, status)."""
+    import torch
+    from coverm_tpu_torch.ops import bgzf_inflate as B
+    pad = np.zeros(B.PAD, np.uint8)
+    comp_t = torch.from_numpy(np.concatenate([comp, pad])).pin_memory()
+    out = torch.zeros(out_size + 8, dtype=torch.uint8).pin_memory()
+    status = torch.full((table.shape[0],), -1,
+                        dtype=torch.int32).pin_memory()
+    B.bgzf_inflate(comp_t, torch.from_numpy(table).pin_memory(),
+                   out[3:3 + out_size], status, dev)
+    torch.cuda.synchronize()
+    return out.numpy()[3:3 + out_size], status.numpy()
+
+
+def phase_inflate(bam, work, dev, card):
+    """Phase 22: the inflate kernel against the host's ct_bgzf_inflate on
+    the adversarial streams and on phase 4's BAM segment by segment,
+    corrupt blocks flagged and raised, timed beside a pinned d2h copy.
+    Returns the kernels-line entry's measured numbers."""
+    import torch
+    import zlib
+    from coverm_tpu_torch.flags import FlagFilter
+    from coverm_tpu_torch.io import native
+    from coverm_tpu_torch.io.bam import BamFormatError
+    from coverm_tpu_torch.io.fastscan import (_HEADROOM, FusedScanStream,
+                                              plan_segments,
+                                              scan_sample_fused)
+    from coverm_tpu_torch.ops import bgzf_inflate as B
+    from coverm_tpu_torch.ops.depth import ReferenceLayout
+    from coverm_tpu_torch.ops.sweep import _EmptyPending
+    from coverm_tpu_torch.synth import write_sorted_bam
+
+    adversarial = []
+    for level, strategy in INFLATE_STREAMS:
+        path = os.path.join(work, f"adv_{level}_{strategy}.gz")
+        adversarial_bgzf(path, level, strategy)
+        adversarial.append((f"level {level}, strategy {strategy}", path))
+    path = os.path.join(work, "adv_huffman_then_stored.gz")
+    huffman_then_stored_bgzf(path)
+    adversarial.append(("Huffman then stored blocks", path))
+    err = 0
+    for label, path in adversarial:
+        data = np.fromfile(path, np.uint8)
+        off, csz, usz = native.bgzf_scan(data)
+        got, status = inflate_on_card(data, B.block_table(data, off, csz, usz),
+                                      int(usz.sum()), dev)
+        want = native.bgzf_inflate_blocks(data, off, csz, usz)
+        if status.any() or byte_err(got, want):
+            raise SystemExit(f"inflate kernel differs from ct_bgzf_inflate "
+                             f"on {label}: {int(status.astype(bool).sum())} "
+                             f"blocks failed, max_abs_err "
+                             f"{byte_err(got, want)}")
+    for label, m, size in corrupt_members():
+        comp = np.frombuffer(m, np.uint8)
+        table = B.block_table(comp, [0], [len(m)], [size])
+        _, status = inflate_on_card(comp, table, size, dev)
+        if not status[0]:
+            raise SystemExit(f"inflate kernel took a corrupt block: {label}")
+        d = zlib.decompressobj(-15)
+        try:
+            ok = len(d.decompress(m[18:-8], size + 1)) == size and d.eof \
+                and size <= B.MAX_BLOCK
+        except zlib.error:
+            ok = False
+        if ok:
+            raise SystemExit(f"corrupt case {label} is not corrupt")
+    log(f"[inflate] kernel equals ct_bgzf_inflate on "
+        f"{len(adversarial)} adversarial streams; "
+        f"{len(corrupt_members())} corrupt blocks flagged")
+
+    # a corrupt block inside a BAM raises through the card route
+    small = os.path.join(work, "inflate_small.bam")
+    write_sorted_bam(small, n_contigs=4, contig_len=100_000, seed=4)
+    data = np.fromfile(small, np.uint8)
+    off, csz, _ = native.bgzf_scan(data)
+    b = off.size - 3
+    data[off[b] + 18] |= 0x06
+    bad = os.path.join(work, "inflate_corrupt.bam")
+    data.tofile(bad)
+    stream = FusedScanStream(bad, target_bytes=1 << 20)
+    header = stream.open()
+    before = B.bgzf_inflate_launches
+    try:
+        scan_sample_fused(
+            header, stream, ReferenceLayout.build(header.target_lens, EE),
+            FlagFilter(), False, device=dev,
+            depth_fn=lambda lay, *a, **k: _EmptyPending(lay.n_contigs, False,
+                                                        None))
+        raise SystemExit("the card route took a corrupt BGZF block")
+    except BamFormatError as e:
+        if str(e) != B.FAILED or B.bgzf_inflate_launches == before:
+            raise SystemExit(f"the card route raised {e!r}")
+
+    # phase 4's BAM, segment by segment as the main path inflates it
+    stream = FusedScanStream(bam)
+    stream.open()
+    mm, off, csz, usz, _carry, j = stream._plan
+    segments = plan_segments(usz, j, stream.target_bytes)
+    # each segment's bytes against ct_bgzf_inflate's and the plain
+    # version's on the same blocks
+    inf = B.SegmentInflater(bam, off, csz, usz, segments, _HEADROOM, dev)
+    total, payload, plain_ms = 0, 0, 0.0
+    try:
+        inf.start(0)
+        for k, (i, e) in enumerate(segments):
+            if k + 1 < len(segments):
+                inf.start(k + 1)
+            buf, lo, hi = inf.take(k)
+            want = native.bgzf_inflate_blocks(mm, off[i:e], csz[i:e],
+                                              usz[i:e])
+            plain, ms = plain_inflate(mm, off[i:e], csz[i:e], usz[i:e])
+            plain_ms += ms
+            seg_err = max(byte_err(buf[lo:hi], want),
+                          byte_err(buf[lo:hi], plain))
+            if seg_err:
+                raise SystemExit(f"inflate kernel differs from ct_bgzf_"
+                                 f"inflate or its plain version on segment "
+                                 f"{k}: max_abs_err {seg_err}")
+            err = max(err, seg_err)
+            total += hi - lo
+            payload += int(csz[i:e].sum()) - 26 * (e - i)
+    finally:
+        inf.close()
+    kernel_ms = sum(inf.kernel_ms)
+    # bytes the function must move: payloads and table in, bytes and
+    # status out
+    moved = payload + total + (32 + 4) * int(off.size - j)
+    bound_ms = moved / H100_BYTES_PER_S * 1e3
+    link_ms = moved / PCIE_GEN5_X16_BYTES_PER_S * 1e3
+
+    # the host link's practical rate: a 256 MiB copy to pinned memory
+    src = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    dst = torch.empty(256 << 20, dtype=torch.uint8, pin_memory=True)
+    d2h = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        dst.copy_(src, non_blocking=True)
+        b.record()
+        b.synchronize()
+        d2h.append(a.elapsed_time(b))
+    d2h_ms = float(np.median(d2h))
+    del src, dst
+    log(f"[inflate] phase 4's BAM: {total} bytes in {len(segments)} "
+        f"segments of {off.size - j} blocks, equal to ct_bgzf_inflate; "
+        f"kernel {kernel_ms:.3f} ms ({total / kernel_ms / 1e6:.3f} GB/s), "
+        f"a segment {[round(x, 3) for x in inf.kernel_ms]} ms; "
+        f"plain version {plain_ms:.1f} ms; max_abs_err {err}; "
+        f"bound {bound_ms:.4f} ms (HBM), {link_ms:.3f} ms (host link)")
+    log(f"[inflate] 256 MiB pinned d2h copy {d2h_ms:.3f} ms, "
+        f"{(256 << 20) / d2h_ms / 1e6:.3f} GB/s; {card}")
+    return {"ms": kernel_ms, "segment_ms": inf.kernel_ms, "plain_ms": plain_ms,
+            "max_abs_err": err,
+            "bound_ms": bound_ms, "link_bound_ms": link_ms,
+            "gb_per_s": total / kernel_ms / 1e6, "bytes": total,
+            "segments": len(segments), "pinned_bytes": inf.pinned_bytes,
+            "d2h_256mib_ms": d2h_ms,
+            "d2h_gb_per_s": (256 << 20) / d2h_ms / 1e6}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1052,6 +1367,8 @@ def main():
             "needs an NVIDIA card")
         return 1
     from coverm_tpu_torch.io import native
+    from coverm_tpu_torch.io.fastscan import FusedScanStream, plan_segments
+    from coverm_tpu_torch.ops import cuda_build
     from coverm_tpu_torch.ops import sweep_scan as K
     from coverm_tpu_torch.ops.depth import (ReferenceLayout,
                                             compute_depth_stats_numpy)
@@ -1068,18 +1385,21 @@ def main():
     card = card_line()
     log(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    # ---- 2. build: the kernel and the native ingest library together
+    # ---- 2. build: the two kernels (one nvcc each) and the native ingest
+    # library, all started together
     t0 = time.perf_counter()
     nat = threading.Thread(target=native.get_lib)
     nat.start()
-    lib = K.build()
+    libs = cuda_build.build_all()
     nat.join()
     if native.get_lib() is None:
         raise SystemExit("native BAM ingest library did not build")
     build_s = time.perf_counter() - t0
-    log(f"[build] {build_s:.1f} s; kernel {os.path.basename(lib)}")
-    with open(lib + ".log") as f:
-        log(f.read().strip())
+    log(f"[build] {build_s:.1f} s; kernels "
+        f"{', '.join(os.path.basename(p) for p in libs.values())}")
+    for path in libs.values():
+        with open(path + ".log") as f:
+            log(f.read().strip())
 
     phase_s = {"build": build_s}
     launches_by_path = {}
@@ -1113,6 +1433,15 @@ def main():
         (tsv_gpu, wall, launches, peak_bytes, err, launches_in,
          batches) = drive("contig", argv, work, dev, keep=True)
         launches_by_path["contig_bam"] = launches
+        plan = FusedScanStream(bam)
+        plan.open()
+        n_segments = len(plan_segments(plan._plan[3], plan._plan[5],
+                                       plan.target_bytes))
+        del plan
+        if INFLATE_LAUNCHES["contig"] != n_segments or n_segments == 0:
+            raise SystemExit(f"contig: the inflate kernel launched "
+                             f"{INFLATE_LAUNCHES['contig']} times over "
+                             f"{n_segments} BGZF segments")
         same_as_cpu("contig", argv, tsv_gpu, work, 32)
         want = oracle_check("contig", bam, truth, argv, dev)
 
@@ -1288,6 +1617,8 @@ def main():
         (launches_by_path["metabat"], mb_err, mb_fused_s,
          mb_classic_s) = phase_metabat(work, dev, card)
         phase_s["metabat"] = time.perf_counter() - t0
+        if INFLATE_LAUNCHES["metabat"] <= 0:
+            raise SystemExit("metabat: the fused route launched no inflate")
 
         # ---- 18. validate
         t0 = time.perf_counter()
@@ -1313,10 +1644,20 @@ def main():
         (launches_by_path["dp_ab_bench"], ab_err,
          dp_ab_res) = phase_dp_ab(dev, card)
         phase_s["dp_ab_bench"] = time.perf_counter() - t0
+
+        # ---- 22. the inflate kernel against the host's inflate
+        t0 = time.perf_counter()
+        inflate = phase_inflate(bam, work, dev, card)
+        phase_s["inflate"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"[phases] seconds: {json.dumps(phase_s)}")
 
+    print(f"[inflate] phase 4's BAM {inflate['bytes']} bytes: "
+          f"{inflate['gb_per_s']:.3f} GB/s on the card, "
+          f"{[round(x, 3) for x in inflate['segment_ms']]} ms a segment; "
+          f"256 MiB pinned d2h copy {inflate['d2h_256mib_ms']:.3f} ms "
+          f"({inflate['d2h_gb_per_s']:.3f} GB/s); {card}")
     print(card)
     print(json.dumps({"kernels": [{
         "name": "sweep_scan",
@@ -1363,6 +1704,29 @@ def main():
         "scaling_transport": scaling_res["transport"],
         "dp_ab_stacked_over_thread": dp_ab_res["stacked_over_thread"],
         "phase_s": phase_s,
+    }, {
+        "name": "bgzf_inflate",
+        "route": "cuda",
+        "source": "coverm_tpu_torch/csrc/bgzf_inflate.cu",
+        "replaces": "coverm_tpu_torch/native/bamdecode.cpp:839 (the host "
+                    "inflate_drain; no TPU kernel inflates)",
+        "launches": INFLATE_LAUNCHES["contig"],
+        "launches_by_path": dict(INFLATE_LAUNCHES),
+        "max_abs_err": inflate["max_abs_err"],
+        "ms": inflate["ms"],
+        "segment_ms": inflate["segment_ms"],
+        "plain_ms": inflate["plain_ms"],
+        "bound_ms": inflate["bound_ms"],
+        "bound_by": "bytes",
+        "link_bound_ms": inflate["link_bound_ms"],
+        "library_ms": None,
+        "library_note": "none: no PyTorch call inflates DEFLATE",
+        "gb_per_s": inflate["gb_per_s"],
+        "inflated_bytes": inflate["bytes"],
+        "segments": inflate["segments"],
+        "pinned_bytes": inflate["pinned_bytes"],
+        "d2h_256mib_ms": inflate["d2h_256mib_ms"],
+        "d2h_gb_per_s": inflate["d2h_gb_per_s"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

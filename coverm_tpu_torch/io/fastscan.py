@@ -1,10 +1,11 @@
 """Fused-native streaming scan: the production BAM-ingestion fast path.
 
 This module collapses the host side of BAM ingest into ONE native pass
-per segment (native/bamdecode.cpp ct_stats_scan): the
-chain walk, CIGAR walk, aux NM scan, flag gating, a filtered source's
-single-read filter, and every per-contig statistic the scan layer needs
-are computed in the C++ workers, and only
+per segment (native/bamdecode.cpp ct_stats_scan behind the card's
+inflate of the segment, ops/bgzf_inflate.py; on the CPU ct_ingest_scan
+with the host's inflate): the chain walk, CIGAR walk, aux NM scan, flag
+gating, a filtered source's single-read filter, and every per-contig
+statistic the scan layer needs are computed in the C++ workers, and only
 the filtered coverage-block arrays (12 bytes/block) cross back into
 Python for device dispatch.  Columns the coverage path never reads
 (qname hashes, AS scores, per-record arrays, record byte offsets) are
@@ -14,8 +15,9 @@ contig.rs:107-215 folded into the decoder.
 
 Streaming state between segments:
   - raw carry: the bytes of a record straddling the segment boundary
-    thread through the native ingest call (copied to the head of the
-    next segment's decode buffer) — no full-segment concat;
+    are copied to the head of the next segment's decode buffer (by the
+    native ingest call, or into the headroom before the card's inflated
+    segment) — no full-segment concat;
   - block carry: the open (trailing) contig's BLOCKS are carried instead
     of its raw record bytes, so memory for a contig that spans many
     segments is 12 bytes/block instead of ~full record size (the
@@ -368,6 +370,35 @@ def _cram_slice_blocks(stream, stats, skip_mask, req_mask):
         stream.close()
 
 
+def plan_segments(usz, j, target_bytes):
+    """The (i, k) BGZF block ranges of the fused ingest after the header
+    probe's first j blocks: each about target_bytes inflated, and at least
+    one block."""
+    cum = np.cumsum(usz)
+    segments, i, n = [], j, usz.size
+    while i < n:
+        base = int(cum[i - 1]) if i else 0
+        k = int(np.searchsorted(cum, base + target_bytes)) + 1
+        k = min(max(k, i + 1), n)
+        segments.append((i, k))
+        i = k
+    return segments
+
+
+def _card_inflater(dev):
+    """The inflater of the fused ingest's BGZF segments on `dev`: on a
+    CUDA device ops.bgzf_inflate.SegmentInflater on that card, with the
+    host's stats scan behind it; None on the CPU, where one native call a
+    segment (ct_ingest_scan) inflates and scans."""
+    if dev.type != "cuda":
+        return None
+    from ..ops.bgzf_inflate import SegmentInflater
+
+    def make(path, off, csz, usz, segments, at):
+        return SegmentInflater(path, off, csz, usz, segments, at, dev)
+    return make
+
+
 def scan_sample_fused(header, stream: FusedScanStream, layout, flag_filter,
                       need_hist: bool, trim=None, device=None,
                       depth_fn=None):
@@ -382,7 +413,15 @@ def scan_sample_fused(header, stream: FusedScanStream, layout, flag_filter,
     and without the accumulator, so multi-device runs get the same fused
     host ingestion.  The stream's `read_filter` goes to every native
     call: a record that fails it counts toward the primary alignments
-    and nothing else, as readfilter.filter_payload leaves it."""
+    and nothing else, as readfilter.filter_payload leaves it.
+
+    The BGZF plan's segments are inflated on the card when `device`
+    resolves (device.resolve_device: None is the card) to a CUDA device,
+    the first local card on a multi-device route: the hand-written kernel
+    of ops/bgzf_inflate.py, one segment ahead of the host's stats scan.
+    There is no fall-back to the host's inflate there. On the CPU the
+    host inflates and scans in one native call a segment."""
+    from ..device import resolve_device
     from ..prefetch import prefetch_iter
     from ..scan import (BamSortingError, MissingNMTagError, SampleScan,
                         merge_depth_stats)
@@ -418,6 +457,64 @@ def scan_sample_fused(header, stream: FusedScanStream, layout, flag_filter,
             deferred=True, acc=dep_acc, contig_counts=counts,
             device=device))
 
+    def plan_blocks():
+        """Yield (btid, bstart, bend, seg_counts) per segment of the BGZF
+        plan; returns the raw carry left after the last one. On the CPU
+        one native call a segment (ct_ingest_scan): inflate, chain and
+        scan overlap inside it, and the raw_carry (incomplete tail record
+        bytes) threads through natively. NOTE: distinct from the ingest
+        loop's outer `carry` (the open contig's BLOCK chunks) -- renamed
+        so the two can never be conflated (ADVICE r4)."""
+        mm, off, csz, usz, raw_carry, j = stream._plan
+        segments = plan_segments(usz, j, stream.target_bytes)
+        inflater = _card_inflater(resolve_device(device))
+        if inflater is not None:
+            return (yield from card_blocks(inflater, off, csz, usz,
+                                           segments, raw_carry))
+        for i, k in segments:
+            res = native.ingest_scan(mm, off[i:k], csz[i:k], usz[i:k],
+                                     raw_carry, 0, stats, skip_mask,
+                                     req_mask, read_filter=rf)
+            if res is None:
+                raise RuntimeError("native fused ingest unavailable")
+            bt, bs, be, seg_counts, raw_carry = res
+            _check_stuck_carry(raw_carry)
+            yield bt, bs, be, seg_counts
+        return raw_carry
+
+    def card_blocks(inflater, off, csz, usz, segments, raw_carry):
+        """The plan's segments inflated by the card, one segment ahead of
+        the host's stats scan (ct_stats_scan on all its threads): the raw
+        carry goes just before each inflated segment, in its headroom, or
+        when longer than that ahead of a copy of it."""
+        if not segments:
+            return raw_carry
+        inf = inflater(stream.path, off, csz, usz, segments, _HEADROOM)
+        try:
+            inf.start(0)
+            for s in range(len(segments)):
+                if s + 1 < len(segments):
+                    inf.start(s + 1)
+                buf, lo, hi = inf.take(s)
+                n = 0 if raw_carry is None else len(raw_carry)
+                if n > lo:
+                    buf = np.concatenate([raw_carry, buf[lo:hi]])
+                    lo, hi = 0, buf.size
+                elif n:
+                    buf[lo - n:lo] = raw_carry
+                    lo -= n
+                res = native.stats_scan(buf, lo, stats, skip_mask, req_mask,
+                                        end=hi, read_filter=rf)
+                if res is None:
+                    raise RuntimeError("native fused scan unavailable")
+                bt, bs, be, seg_counts, end_off = res
+                raw_carry = buf[end_off:hi].copy()
+                _check_stuck_carry(raw_carry)
+                yield bt, bs, be, seg_counts
+        finally:
+            inf.close()
+        return raw_carry
+
     def seg_blocks():
         """Yield (btid, bstart, bend) per segment, updating `stats`."""
         if getattr(stream, "_cram", None) is not None:
@@ -425,29 +522,7 @@ def scan_sample_fused(header, stream: FusedScanStream, layout, flag_filter,
                                           req_mask)
             return
         if getattr(stream, "_plan", None) is not None:
-            # one-call fused ingest per raw block-table group: inflate,
-            # chain and scan overlap inside the native call; the
-            # raw_carry (incomplete tail record bytes) threads through
-            # natively.  NOTE: distinct from the ingest loop's outer
-            # `carry` (the open contig's BLOCK chunks) — renamed so the
-            # two can never be conflated (ADVICE r4).
-            mm, off, csz, usz, raw_carry, j = stream._plan
-            cum = np.cumsum(usz)
-            n = off.size
-            i = n if j >= n else j
-            while i < n:
-                base = int(cum[i - 1]) if i else 0
-                k = int(np.searchsorted(cum, base + stream.target_bytes)) + 1
-                k = min(max(k, i + 1), n)
-                res = native.ingest_scan(mm, off[i:k], csz[i:k], usz[i:k],
-                                         raw_carry, 0, stats, skip_mask,
-                                         req_mask, read_filter=rf)
-                if res is None:
-                    raise RuntimeError("native fused ingest unavailable")
-                bt, bs, be, seg_counts, raw_carry = res
-                _check_stuck_carry(raw_carry)
-                yield bt, bs, be, seg_counts
-                i = k
+            raw_carry = yield from plan_blocks()
             if raw_carry is not None and len(raw_carry):
                 # trailing bytes (or a header-probe remainder when the
                 # whole file fit in the probe): scan them directly

@@ -659,6 +659,7 @@ namespace {
 
 constexpr int64_t kChunkShift = 15;  // 32768 records per chunk
 constexpr int64_t kChunkRecs = 1ll << kChunkShift;
+constexpr int64_t kChainAhead = 4096;  // the chain walk's prefetch distance
 
 }  // namespace
 
@@ -917,6 +918,11 @@ void run_stats_pipeline(const uint8_t* data, int64_t end, int64_t start,
     int64_t pos = start, nrec = 0;
     int64_t avail = inf ? inf->base : end;  // inflated frontier (bytes)
     int64_t fr = 0;                          // confirmed inflate chunks
+    // Over a buffer decoded before the call (ct_stats_scan) the bytes are
+    // cold, and each record's length field is a load that waits on the
+    // last: prefetch every line kChainAhead bytes ahead of the walk. With
+    // an inflate stage the walk reads bytes just written and needs none.
+    int64_t pf = inf ? end : start;  // the next line to prefetch
     auto ensure = [&](int64_t need) -> bool {
       while (avail < need) {
         if (!inf) return false;
@@ -955,6 +961,9 @@ void run_stats_pipeline(const uint8_t* data, int64_t end, int64_t start,
       }
       pos += 4 + (int64_t)bs;
       __builtin_prefetch(data + pos);
+      for (int64_t lim = pos + kChainAhead < end ? pos + kChainAhead : end;
+           pf < lim; pf += 64)
+        __builtin_prefetch(data + pf);
       nrec++;
     }
     st->n_records = nrec;

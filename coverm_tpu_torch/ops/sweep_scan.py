@@ -6,7 +6,7 @@ the Pallas TPU kernel `_sweep_kernel`) together with the scans that
 window maximum and minimum, the four int64 cumsums and the per-contig
 boundary differences. The kernel source is csrc/sweep_scan.cu; it is
 compiled with nvcc for sm_90a into a shared library with a plain C
-interface on first use and bound with ctypes.
+interface on first use (ops/cuda_build.py) and bound with ctypes.
 
 Input: the sorted int64 event keys of `sweep.sort_events`,
 
@@ -41,13 +41,11 @@ the result is exact in any order.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 
 import torch
+
+from . import cuda_build
 
 PAD_POS = 1 << 30  # position marking padding events
 PAD_KEY = (1 << 63) - 1  # key of a padding event
@@ -56,11 +54,8 @@ PER_SEG_ROWS = ("sum_w", "cov_w", "cov_f", "max_w", "sq_w", "minpay")
 _MAX_ROWS = (3, 5)  # rows of per_seg reduced by max; the others by sum
 _MASK32 = (1 << 32) - 1
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "sweep_scan.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+SOURCE = cuda_build.SOURCES[0]  # csrc/sweep_scan.cu
+BUILD_DIR = cuda_build.BUILD_DIR
 
 # launches of the CUDA kernel (the plain version does not count); threads
 # that launch at once (sample-DP workers, shards) count under _count_lock
@@ -71,49 +66,17 @@ _lib_lock = threading.Lock()
 _count_lock = threading.Lock()
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the sweep-scan kernel needs the "
-                           "CUDA toolkit (set CUDA_HOME)")
-    return found
-
-
-def library_path() -> str:
-    """Build output for the current source (content-addressed)."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"libsweep_scan_{digest.hexdigest()[:12]}.so")
-
-
 def build() -> str:
-    """Compile the kernel if its library is missing; returns its path.
-    The compiler's report (registers, spills) is kept beside it as
-    `<library>.log`."""
-    out = library_path()
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                          capture_output=True, text=True)
-    with open(out + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+    """Compile the port's kernels where their libraries are missing
+    (cuda_build.build_all); returns this kernel's library path."""
+    return cuda_build.build_all()[SOURCE]
 
 
 def _load():
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
+            lib = ctypes.CDLL(cuda_build.build(SOURCE))
             vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
             lib.sweep_scan_scratch_words.restype = i64
             lib.sweep_scan_scratch_words.argtypes = [i64, i32]

@@ -15,10 +15,19 @@ Times, on one BAM, each stage as the best of --reps passes:
   stream            - io/bam.BamStreamReader: inflate and parse, prefetched
   fused             - ingest_scan over the FusedScanStream plan, one
                       native call a segment (stream open included)
-  e2e, stubbed      - io/fastscan.scan_sample_fused with the depth engine
-                      stubbed: bench_torch/run.py's ingest_s
+  card inflate      - ops/bgzf_inflate.SegmentInflater over the plan's
+                      segments alone, on the device (the kernel on a card,
+                      its plain version on the CPU): the wall seconds, the
+                      kernel's milliseconds a segment (CUDA events), its
+                      launches and the pinned bytes it holds
+  e2e, stubbed      - io/fastscan.scan_sample_fused on the device with the
+                      depth engine stubbed: bench_torch/run.py's ingest_s;
+                      on a CUDA device the card inflates, and its
+                      SegmentInflater's own timings split the pass: the
+                      worker's seconds staging and launching segments, the
+                      scan's seconds waiting for the card, the kernel's ms
   e2e               - the same with the sweep engine on the device; the
-                      sweep-scan kernel's launches are counted
+                      sweep-scan and inflate kernels' launches are counted
 
 The inflate to bookkeep stages go segment by segment, over the
 FusedScanStream's own segments (COVERM_TPU_SEGMENT_BYTES, 256 MiB by
@@ -63,6 +72,7 @@ STAGES = [("bgzf_scan", "bgzf scan"), ("inflate", "inflate"),
           ("bookkeep", "bookkeep (scan_sample-dev)"),
           ("stream", "stream (inflate+parse)"),
           ("fused", "fused one-call ingest"),
+          ("card_inflate", "card inflate alone"),
           ("e2e_stub", "e2e, depth stubbed"), ("e2e", "e2e, sweep engine")]
 SEGMENTED = ("inflate", "phase1", "full_parse", "stats_scan", "bookkeep")
 PROLOGUE = ("prep_segments", "choose_payload", "encode_start_deltas",
@@ -117,16 +127,9 @@ def segment_groups(stream):
     """The plan's BGZF block ranges [(i, k)]: the header probe's blocks,
     then groups of about stream.target_bytes inflated, cut as
     io/fastscan.scan_sample_fused cuts its segments."""
+    from ..io.fastscan import plan_segments
     _mm, _off, _csz, usz, _carry, j = stream._plan
-    cum = np.cumsum(usz)
-    groups, i, n = [(0, j)], j, usz.size
-    while i < n:
-        base = int(cum[i - 1]) if i else 0
-        k = int(np.searchsorted(cum, base + stream.target_bytes)) + 1
-        k = min(max(k, i + 1), n)
-        groups.append((i, k))
-        i = k
-    return groups
+    return [(0, j)] + plan_segments(usz, j, stream.target_bytes)
 
 
 def _stub(layout, *_, **kw):
@@ -247,9 +250,45 @@ def fused_pass(path):
     return stats.n_records, blocks
 
 
-def e2e_pass(path, device=None):
-    """io/fastscan.scan_sample_fused over the BAM: with the sweep engine
-    on `device`, or with it stubbed when device is None. Returns (mapped
+def pinned_allocated(nbytes) -> int:
+    """Bytes torch's pinned host allocator takes for a tensor of nbytes:
+    the next power of two (CachingHostAllocator)."""
+    return 1 << max(int(nbytes) - 1, 0).bit_length()
+
+
+def card_inflate_pass(path, device):
+    """SegmentInflater over the plan's segments, each started one ahead
+    of the one taken: (bytes, segments, kernel ms a segment, launches,
+    pinned bytes, pinned bytes as allocated)."""
+    from ..io.fastscan import _HEADROOM, plan_segments
+    from ..ops import bgzf_inflate as B
+
+    stream, _ = _open(path)
+    _mm, off, csz, usz, _carry, j = stream._plan
+    segments = plan_segments(usz, j, stream.target_bytes)
+    before = B.bgzf_inflate_launches
+    inf = B.SegmentInflater(path, off, csz, usz, segments, _HEADROOM,
+                            device)
+    try:
+        total = 0
+        for s in range(len(segments)):
+            if s == 0:
+                inf.start(0)
+            if s + 1 < len(segments):
+                inf.start(s + 1)
+            _buf, lo, hi = inf.take(s)
+            total += hi - lo
+    finally:
+        inf.close()
+    allocated = sum(pinned_allocated(n) for n in inf.tensor_bytes) \
+        if inf.pinned_bytes else 0
+    return (total, len(segments), inf.kernel_ms,
+            B.bgzf_inflate_launches - before, inf.pinned_bytes, allocated)
+
+
+def e2e_pass(path, device, stub=False):
+    """io/fastscan.scan_sample_fused over the BAM on `device`: with the
+    sweep engine there, or with it stubbed (stub=True). Returns (mapped
     reads counted, blocks given to the stub, None with the engine)."""
     from ..flags import FlagFilter
     from ..io.fastscan import scan_sample_fused
@@ -257,22 +296,37 @@ def e2e_pass(path, device=None):
 
     stream, header = _open(path)
     layout = ReferenceLayout.build(header.target_lens, EE)
-    blocks = None if device is not None else 0
+    blocks = 0 if stub else None
 
     def counting_stub(layout, bt, *a, **kw):
         nonlocal blocks
         blocks += bt.size
         return _stub(layout, **kw)
 
-    if device is None:
-        scan = scan_sample_fused(header, stream, layout, FlagFilter(), False,
-                                 trim=TRIM, depth_fn=counting_stub)
-    else:
-        scan = scan_sample_fused(header, stream, layout, FlagFilter(), False,
-                                 trim=TRIM, device=device)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+    scan = scan_sample_fused(header, stream, layout, FlagFilter(), False,
+                             trim=TRIM, device=device,
+                             depth_fn=counting_stub if stub else None)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
     return int(scan.reads_all.sum()), blocks
+
+
+@contextlib.contextmanager
+def inflaters_made():
+    """Collect the SegmentInflaters that io/fastscan's card route makes
+    while the block runs, so their own timings can be read."""
+    from ..ops import bgzf_inflate as B
+    made, cls = [], B.SegmentInflater
+
+    class Recorded(cls):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+    B.SegmentInflater = Recorded
+    try:
+        yield made
+    finally:
+        B.SegmentInflater = cls
 
 
 @contextlib.contextmanager
@@ -324,6 +378,7 @@ def profile(path, reps=3, device=None, out=print):
     from ..device import resolve_device
     from ..io import native
     from ..io.bam import BamStreamReader
+    from ..ops import bgzf_inflate as B
     from ..ops import sweep_scan as K
 
     dev = resolve_device(device)
@@ -376,10 +431,35 @@ def profile(path, reps=3, device=None, out=print):
 
     rec, blk = best("fused", lambda: fused_pass(path))
     stages["fused"].update(records=rec, blocks=blk)
-    rec, blk = best("e2e_stub", lambda: e2e_pass(path))
-    stages["e2e_stub"].update(mapped_reads=rec, blocks=blk)
+    (total, n_seg, kernel_ms, launches, pinned,
+     allocated) = best("card_inflate", lambda: card_inflate_pass(path, dev))
+    stages["card_inflate"].update(
+        bytes=total, segments=n_seg, launches=launches,
+        kernel_ms=kernel_ms, device=str(dev), pinned_bytes=pinned,
+        pinned_bytes_allocated=allocated)
+    if dev.type == "cuda":
+        ms = sum(kernel_ms)
+        stages["card_inflate"].update(
+            kernel_ms_total=ms, kernel_gb_per_s=total / ms / 1e6)
+    walls = []
 
-    per_rep, launches = [], set()
+    def stub_pass():
+        t0 = time.perf_counter()
+        got = e2e_pass(path, dev, stub=True)
+        walls.append(time.perf_counter() - t0)
+        return got
+    with inflaters_made() as made:
+        rec, blk = best("e2e_stub", stub_pass)
+    stages["e2e_stub"].update(mapped_reads=rec, blocks=blk,
+                              route="card" if dev.type == "cuda" else "host")
+    if made and len(made) == len(walls):
+        # the card route's split, of the pass whose wall is kept
+        fastest = made[int(np.argmin(walls))]
+        stages["e2e_stub"].update(
+            card_stage_s=fastest.stage_s, card_wait_s=fastest.wait_s,
+            kernel_ms_total=sum(fastest.kernel_ms))
+
+    per_rep, launches, inflates = [], set(), set()
 
     def e2e():
         totals, bufs = dict.fromkeys(PROLOGUE, 0.0), []
@@ -387,10 +467,12 @@ def profile(path, reps=3, device=None, out=print):
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             K.sweep_scan_launches = 0
+            B.bgzf_inflate_launches = 0
             t0 = time.perf_counter()
             rec, _ = e2e_pass(path, dev)
             wall = time.perf_counter() - t0
             launches.add(K.sweep_scan_launches)
+            inflates.add(B.bgzf_inflate_launches)
         totals["upload"] = upload_s(bufs, dev)
         totals["batches"] = len(bufs)
         per_rep.append((wall, totals))
@@ -400,8 +482,12 @@ def profile(path, reps=3, device=None, out=print):
     if len(launches) != 1:
         raise RuntimeError(f"the e2e passes launched the sweep-scan kernel "
                            f"{sorted(launches)} times")
+    if len(inflates) != 1:
+        raise RuntimeError(f"the e2e passes launched the inflate kernel "
+                           f"{sorted(inflates)} times")
     stages["e2e"] = {"s": min(w for w, _ in per_rep), "mapped_reads": rec,
-                     "k1_launches": launches.pop(), "device": str(dev),
+                     "k1_launches": launches.pop(),
+                     "inflate_launches": inflates.pop(), "device": str(dev),
                      "peak_rss_bytes": rss.peak}
     prologue = {name: min(t[name] for _, t in per_rep)
                 for name in (*PROLOGUE, "upload")}
