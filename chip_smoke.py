@@ -116,7 +116,13 @@ Phases, in order; any failure exits non-zero:
      blocks must be flagged, and one inside a BAM must raise through the
      card route; the whole-BAM inflate rate and the kernel's ms a segment
      (CUDA events) beside its plain version and a 256 MiB pinned d2h
-     copy.
+     copy; then the kernel's design: its shared bytes a CTA and CTAs an
+     SM (the card's occupancy query), and its time segment by segment
+     (coverm_tpu_torch/scripts/inflate_ab.py), on pinned host memory and
+     on the card's own, on phase 4's BAM (zlib level 1), on its blocks at
+     level 6 (zlib's default, which samtools writes) and on a 5 M-read
+     sample shaped as the benchmark's (bench_torch/synth.py), its mapped
+     and unmapped segments apart.
 
 Phases 4 to 11 and 17 each run their command once to warm up (recording the
 kernel's inputs and the engine's batches), then once with the kernels'
@@ -186,6 +192,9 @@ INFLATE_LAUNCHES = {}
 # the adversarial BGZF streams of phase 22: (zlib level, strategy)
 INFLATE_STREAMS = [(0, 0), (1, 0), (6, 0), (9, 0), (6, 4), (6, 2), (6, 3)]
 PCIE_GEN5_X16_BYTES_PER_S = 63e9  # one direction, published
+# reads of phase 22's demo-shaped sample: six segments, two of mapped
+# reads, one mixed, three of unmapped ones (the last short)
+INFLATE_DEMO_READS = 5_000_000
 
 
 def log(msg):
@@ -1213,6 +1222,49 @@ def inflate_on_card(comp, table, out_size, dev):
     return out.numpy()[3:3 + out_size], status.numpy()
 
 
+def reblock_bgzf(src, dst, level):
+    """src's BGZF blocks, each inflated and compressed again at zlib
+    `level` with the same bytes a block, into dst."""
+    from concurrent.futures import ThreadPoolExecutor
+    from coverm_tpu_torch.io import native
+    from coverm_tpu_torch.io.bgzf import BGZF_EOF, compress_block
+    data = np.fromfile(src, np.uint8)
+    off, csz, usz = native.bgzf_scan(data)
+    raw = native.bgzf_inflate_blocks(data, off, csz, usz).tobytes()
+    cut = np.concatenate(([0], np.cumsum(usz)))
+    with open(dst, "wb") as f, ThreadPoolExecutor(os.cpu_count()) as ex:
+        for block in ex.map(lambda b: compress_block(
+                raw[cut[b]:cut[b + 1]], level), range(off.size)):
+            f.write(block)
+        f.write(BGZF_EOF)
+
+
+def phase_inflate_design(bam, work, dev):
+    """Phase 22, the kernel's design: its shared bytes a CTA and CTAs an
+    SM, and its time segment by segment (scripts/inflate_ab.py, on the
+    card's memory too) on phase 4's BAM (zlib level 1, as the
+    benchmark's BAMs), its blocks at level 6 (zlib's default, which
+    samtools and htslib write unless told otherwise) and a demo-shaped
+    sample (bench_torch/synth.py) whose unmapped reads fill segments of
+    their own. Returns what the kernels line carries."""
+    from bench_torch import synth as demo_synth
+    from coverm_tpu_torch.ops import bgzf_inflate as B
+    from coverm_tpu_torch.scripts import inflate_ab
+    smem, ctas = B.occupancy(dev)
+    level6 = os.path.join(work, "bench_level6.bam")
+    reblock_bgzf(bam, level6, 6)
+    demo = os.path.join(work, "demo.bam")
+    demo_synth.write_bam(demo, demo_synth.demo(INFLATE_DEMO_READS, seed=0))
+    launch = inflate_ab.launchers(["kernel", "kernel@card"])
+    runs = {name: inflate_ab.run_bam(path, launch, dev) for name, path in
+            (("level1", bam), ("level6", level6), ("demo", demo))}
+    for name, r in runs.items():
+        log(f"[inflate design] {name}: {json.dumps(r)}")
+    os.remove(level6)
+    os.remove(demo)
+    return {"smem_bytes": smem, "ctas_per_sm": ctas, "runs": runs}
+
+
 def phase_inflate(bam, work, dev, card):
     """Phase 22: the inflate kernel against the host's ct_bgzf_inflate on
     the adversarial streams and on phase 4's BAM segment by segment,
@@ -1648,6 +1700,7 @@ def main():
         # ---- 22. the inflate kernel against the host's inflate
         t0 = time.perf_counter()
         inflate = phase_inflate(bam, work, dev, card)
+        design = phase_inflate_design(bam, work, dev)
         phase_s["inflate"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -1658,6 +1711,21 @@ def main():
           f"{[round(x, 3) for x in inflate['segment_ms']]} ms a segment; "
           f"256 MiB pinned d2h copy {inflate['d2h_256mib_ms']:.3f} ms "
           f"({inflate['d2h_gb_per_s']:.3f} GB/s); {card}")
+    runs = design["runs"]
+    ms = {name: {v: r["variants"][v]["ms"] for v in r["variants"]}
+          for name, r in runs.items()}
+    print(f"[inflate] kernel {design['smem_bytes']} shared bytes a CTA, "
+          f"{design['ctas_per_sm']} CTAs an SM; ms a segment of the demo "
+          f"sample: "
+          + "; ".join(f"{kd} {v['segments']} segments "
+                      f"{v['min_ms']:.3f}-{v['max_ms']:.3f}"
+                      for kd, v in
+                      runs["demo"]["variants"]["kernel"]["by_kind"].items())
+          + f"; phase 4's BAM at zlib level 1 (its own, the benchmark's) "
+          f"{ms['level1']['kernel']:.3f} ms, at level 6 (zlib's default, "
+          f"samtools' and htslib's) {ms['level6']['kernel']:.3f} ms; on "
+          f"the card's memory {ms['level1']['kernel@card']:.3f} and "
+          f"{ms['level6']['kernel@card']:.3f} ms; {card}")
     print(card)
     print(json.dumps({"kernels": [{
         "name": "sweep_scan",
@@ -1727,6 +1795,11 @@ def main():
         "pinned_bytes": inflate["pinned_bytes"],
         "d2h_256mib_ms": inflate["d2h_256mib_ms"],
         "d2h_gb_per_s": inflate["d2h_gb_per_s"],
+        "smem_bytes": design["smem_bytes"],
+        "ctas_per_sm": design["ctas_per_sm"],
+        "design_ms": ms,
+        "demo_by_kind_ms": {v: r["by_kind"] for v, r in
+                            runs["demo"]["variants"].items()},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

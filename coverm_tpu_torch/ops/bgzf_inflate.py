@@ -1,12 +1,13 @@
 """BGZF inflate on the card: a hand-written CUDA kernel and its plain version.
 
 The kernel (csrc/bgzf_inflate.cu) decodes a batch of independent BGZF
-blocks, one warp a block, straight from pinned host memory into pinned
-host memory; it is compiled with nvcc for sm_90a into a shared library
-with a plain C interface on first use (ops/cuda_build.py, with the
-sweep-scan kernel) and bound with ctypes. It takes over the inflate
-of the fused BAM ingest from the host (native/bamdecode.cpp,
-ct_ingest_scan); the JAX package has no kernel for it.
+blocks, one CTA a block (a decoder warp and a copy warp), straight from
+pinned host memory into pinned host memory; it is compiled with nvcc
+for sm_90a into a shared library with a plain C interface on first use
+(ops/cuda_build.py, with the sweep-scan kernel) and bound with ctypes.
+It takes over the inflate of the fused BAM ingest from the host
+(native/bamdecode.cpp, ct_ingest_scan); the JAX package has no kernel
+for it.
 
 `bgzf_inflate(comp, table, out, status, device)` inflates the blocks that
 `block_table` describes. For a CUDA device the four tensors are pinned
@@ -57,6 +58,9 @@ def _load():
             lib.bgzf_inflate_launch.restype = ctypes.c_int
             lib.bgzf_inflate_launch.argtypes = [vp] * 4 + [
                 ctypes.c_longlong, ctypes.c_int, vp]
+            lib.bgzf_inflate_occupancy.restype = ctypes.c_int
+            lib.bgzf_inflate_occupancy.argtypes = [ctypes.c_int]
+            lib.bgzf_inflate_smem_bytes.restype = ctypes.c_int
             _lib = lib
     return _lib
 
@@ -132,6 +136,21 @@ def bgzf_inflate(comp, table, out, status, device):
                            f"{step}: CUDA error {err % 1000}")
     with _count_lock:
         bgzf_inflate_launches += 1
+
+
+def occupancy(device):
+    """(shared bytes a CTA, CTAs an SM of the card) of the kernel, as the
+    card's occupancy query gives them."""
+    device = torch.device(device)
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    lib = _load()
+    ctas = lib.bgzf_inflate_occupancy(index)
+    if ctas < 0:
+        raise RuntimeError(f"bgzf_inflate occupancy query failed on "
+                           f"cuda:{index}: step {-ctas // 1000}, CUDA error "
+                           f"{-ctas % 1000}")
+    return lib.bgzf_inflate_smem_bytes(), ctas
 
 
 def bgzf_inflate_reference(comp, table, out, status):

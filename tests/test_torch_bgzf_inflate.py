@@ -6,12 +6,17 @@ csrc/bgzf_inflate.cu) and the fused ingest's card route
   length and its output offset, held against what Python's zlib decodes,
   on BGZF files written from a numpy seed with zlib levels 0, 1, 6 and 9,
   with Z_FIXED, Z_HUFFMAN_ONLY and Z_RLE, and one whose blocks each hold
-  a Huffman-coded block followed by stored blocks, each file ending in
-  the empty EOF member.
+  a Huffman-coded block followed by stored blocks, and on streams
+  written token by token for the kernel's design (crafted_blocks:
+  matches 32,768 back across the history ring's wrap, literal pairs
+  whose codes end at the lookup's width, match chains that fill the
+  queue at every offset, 64 KiB blocks), each file ending in the empty
+  EOF member.
 - The kernel's decoder itself: the .cu built for the host by g++, where
-  each warp phase runs lane by lane (bgzf_inflate_host), equals zlib on
-  those files and flags the corrupt blocks that zlib rejects, as does the
-  plain version.
+  each warp phase runs lane by lane, the copy warp's after the
+  decoder's (bgzf_inflate_host), equals zlib on those files at every
+  output alignment modulo 16 and flags the corrupt blocks that zlib
+  rejects, as does the plain version.
 - The card route's pipeline, run on the CPU with the host's
   ct_bgzf_inflate (bgzf_inflate_into) or the plain version in place of
   the kernel: its SampleScan (stats, depth, error messages) equals the
@@ -23,8 +28,9 @@ csrc/bgzf_inflate.cu) and the fused ingest's card route
 - Routing: the CPU keeps ct_ingest_scan; a CUDA device never reaches it.
 
 On the card (`python -m pytest --noconftest -m cuda
-tests/test_torch_bgzf_inflate.py`), the kernel must equal ct_bgzf_inflate
-byte for byte on the same files and flag the corrupt ones. JAX is
+tests/test_torch_bgzf_inflate.py`), the kernel must equal
+ct_bgzf_inflate byte for byte on the same files and flag the corrupt
+ones. JAX is
 imported only inside the tests that compare with the JAX package.
 """
 
@@ -62,7 +68,10 @@ STREAMS = {
     "rle": (6, zlib.Z_RLE),
 }
 HUFFMAN_THEN_STORED = "huffman_then_stored"
-STREAM_NAMES = [*STREAMS, HUFFMAN_THEN_STORED]
+# streams written token by token (deflate_tokens), for the kernel's ring,
+# lookup table and match queue
+CRAFTED = ("wrap_32k", "pairs_at_width", "queue_chains", "full_64k")
+STREAM_NAMES = [*STREAMS, HUFFMAN_THEN_STORED, *CRAFTED]
 EOF_MEMBER = bytes.fromhex(
     "1f8b08040000000000ff0600424302001b0003000000000000000000")
 
@@ -147,6 +156,184 @@ def write_huffman_then_stored(path, seed=2):
     return raws + [b""]
 
 
+class BitWriter:
+    """DEFLATE's bit order: values from their lowest bit, Huffman codes
+    from their highest."""
+
+    def __init__(self):
+        self.acc, self.n = 0, 0
+
+    def put(self, value, n):
+        self.acc |= value << self.n
+        self.n += n
+
+    def code(self, code, n):
+        self.put(int(format(code, f"0{n}b")[::-1], 2) if n else 0, n)
+
+    def bytes(self):
+        return self.acc.to_bytes((self.n + 7) // 8, "little")
+
+
+LEN_BASE = [3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 15, 17, 19, 23, 27, 31, 35, 43,
+            51, 59, 67, 83, 99, 115, 131, 163, 195, 227, 258]
+LEN_EXTRA = [0] * 8 + [1] * 4 + [2] * 4 + [3] * 4 + [4] * 4 + [5] * 4 + [0]
+DIST_BASE = [1, 2, 3, 4, 5, 7, 9, 13, 17, 25, 33, 49, 65, 97, 129, 193, 257,
+             385, 513, 769, 1025, 1537, 2049, 3073, 4097, 6145, 8193,
+             12289, 16385, 24577]
+DIST_EXTRA = [0, 0, 0, 0] + [k // 2 for k in range(2, 28)]
+FIXED_LIT = [8] * 144 + [9] * 112 + [7] * 24 + [8] * 8
+FIXED_DIST = [5] * 30
+
+
+def canonical_codes(lengths):
+    """Each symbol's canonical code (RFC 1951 §3.2.2)."""
+    count = [0] * 16
+    for n in lengths:
+        count[n] += 1
+    count[0] = 0
+    code, nxt = 0, [0] * 16
+    for n in range(1, 16):
+        code = (code + count[n - 1]) << 1
+        nxt[n] = code
+    codes = []
+    for n in lengths:
+        codes.append(nxt[n])
+        nxt[n] += n > 0
+    return codes
+
+
+def deflate_tokens(tokens, lit_lens=None, dist_lens=None):
+    """One final DEFLATE block of `tokens` (a literal byte, an int, or a
+    (length, distance) match): fixed Huffman codes when no code lengths
+    are given, else a dynamic block with exactly these lengths, each sent
+    as its own code-length symbol. Returns (payload, inflated bytes)."""
+    w = BitWriter()
+    out = bytearray()
+    dynamic = lit_lens is not None
+    lit_lens = lit_lens or FIXED_LIT
+    dist_lens = dist_lens or FIXED_DIST
+    w.put(1, 1)
+    w.put(2 if dynamic else 1, 2)
+    if dynamic:
+        w.put(len(lit_lens) - 257, 5)
+        w.put(len(dist_lens) - 1, 5)
+        w.put(19 - 4, 4)
+        # the code-length code: 13 symbols of 4 bits, 6 of 5 (complete)
+        cl_lens = [4] * 13 + [5] * 6
+        order = [16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13, 2, 14,
+                 1, 15]
+        by_sym = [0] * 19
+        for rank, sym in enumerate(sorted(range(19),
+                                          key=lambda x: (x > 15, x))):
+            by_sym[sym] = cl_lens[rank]
+        for sym in order:
+            w.put(by_sym[sym], 3)
+        cl_codes = canonical_codes(by_sym)
+        for n in list(lit_lens) + list(dist_lens):
+            w.code(cl_codes[n], by_sym[n])
+    lc, dc = canonical_codes(lit_lens), canonical_codes(dist_lens)
+    for t in tokens:
+        if isinstance(t, int):
+            w.code(lc[t], lit_lens[t])
+            out.append(t)
+            continue
+        length, dist = t
+        sym = max(i for i, b in enumerate(LEN_BASE) if b <= length)
+        if length == 258:
+            sym = 28
+        w.code(lc[257 + sym], lit_lens[257 + sym])
+        w.put(length - LEN_BASE[sym], LEN_EXTRA[sym])
+        ds = max(i for i, b in enumerate(DIST_BASE) if b <= dist)
+        w.code(dc[ds], dist_lens[ds])
+        w.put(dist - DIST_BASE[ds], DIST_EXTRA[ds])
+        for _ in range(length):
+            out.append(out[-dist])
+    w.code(lc[256], lit_lens[256])
+    return w.bytes(), bytes(out)
+
+
+def crafted_blocks(name, seed=3):
+    """(payload, raw) blocks of a crafted stream:
+    - wrap_32k: 33,000 random literals, then matches at distances 32,768,
+      32,767 and 32,700 that reach back across the 32 KiB history ring's
+      wrap (lengths 3 to 258), literals between, to 65,536 bytes;
+    - pairs_at_width: a dynamic block whose literals 'A'-'K' have codes of
+      1 to 11 bits (the end of block and one length code 12), every
+      ordered pair of them in turn: pairs of codes that end before, at
+      and past the 11-bit lookup;
+    - queue_chains: runs of 40-200 back-to-back matches, each reading the
+      one before it (distances 1-12 into bytes a queued match writes),
+      after 0-40 literals, so the 32-match queue fills at every offset;
+    - full_64k: blocks of exactly 65,536 bytes (DNA text with repeats and
+      random runs), Huffman-coded by zlib, for the flush at every output
+      alignment."""
+    rng = np.random.default_rng(seed)
+    if name == "wrap_32k":
+        for run in range(3):
+            toks = [int(b) for b in rng.integers(0, 256, 33000)]
+            n = 33000
+            while n < 65536 - 300:
+                dist = int(rng.choice([32768, 32767, 32700]))
+                length = int(rng.choice([3, 4, 31, 32, 33, 100, 257, 258]))
+                toks.append((length, dist))
+                n += length
+                for _ in range(int(rng.integers(0, 3 + run))):
+                    toks.append(int(rng.integers(0, 256)))
+                    n += 1
+            while n < 65536:
+                toks.append(int(rng.integers(0, 256)))
+                n += 1
+            yield deflate_tokens(toks)
+    elif name == "pairs_at_width":
+        lit = [0] * 286
+        for i in range(11):
+            lit[65 + i] = i + 1
+        lit[256] = lit[257] = 12
+        syms = range(65, 76)
+        toks = [a for x in syms for y in syms for a in (x, y)]
+        toks += [(3, 1)] + [65, 75] * 20  # the 12-bit length code
+        yield deflate_tokens(toks, lit, [1])
+        yield deflate_tokens(toks[1:] * 3, lit, [1])
+    elif name == "queue_chains":
+        toks, n = [], 0
+        while n < 60000:
+            for _ in range(int(rng.integers(0, 41))):
+                toks.append(int(rng.integers(0, 256)))
+                n += 1
+            if n < 12:
+                continue
+            for _ in range(int(rng.integers(40, 201))):
+                length = int(rng.integers(3, 20))
+                toks.append((length, int(rng.integers(1, 13))))
+                n += length
+        yield deflate_tokens(toks)
+    else:
+        text = bytes(np.frombuffer(b"ACGT", np.uint8)[
+            rng.integers(0, 4, 20000)])
+        for k in range(4):
+            raw = (text[k * 100:] + bytes(rng.integers(0, 256, 3000,
+                                                       dtype=np.uint8))
+                   + text) * 3
+            c = zlib.compressobj(1 + 2 * k, zlib.DEFLATED, -15)
+            yield c.compress(raw[:65536]) + c.flush(), raw[:65536]
+
+
+def write_crafted(path, name):
+    """A BGZF file of crafted_blocks(name), the EOF member last; returns
+    the raw blocks."""
+    raws = []
+    with open(path, "wb") as f:
+        for body, raw in crafted_blocks(name):
+            assert zlib.decompress(body, -15) == raw  # zlib agrees
+            f.write(struct.pack("<BBBBIBBHBBHH", 0x1F, 0x8B, 8, 4, 0, 0,
+                                0xFF, 6, ord("B"), ord("C"), 2,
+                                len(body) + 25) + body
+                    + struct.pack("<II", zlib.crc32(raw), len(raw)))
+            raws.append(raw)
+        f.write(EOF_MEMBER)
+    return raws + [b""]
+
+
 @pytest.fixture(scope="module")
 def streams(tmp_path_factory):
     d = tmp_path_factory.mktemp("bgzf")
@@ -156,6 +343,9 @@ def streams(tmp_path_factory):
         out[name] = (path, write_bgzf(path, level, strategy))
     path = str(d / f"{HUFFMAN_THEN_STORED}.gz")
     out[HUFFMAN_THEN_STORED] = (path, write_huffman_then_stored(path))
+    for name in CRAFTED:
+        path = str(d / f"{name}.gz")
+        out[name] = (path, write_crafted(path, name))
     return out
 
 
@@ -244,11 +434,11 @@ def host_decoder(tmp_path_factory):
     return run
 
 
-@pytest.mark.parametrize("shift", [0, 5])
+@pytest.mark.parametrize("shift", range(16))
 @pytest.mark.parametrize("name", STREAM_NAMES)
 def test_kernel_decoder_equals_zlib(streams, host_decoder, name, shift):
-    """The kernel's decode and its 16-byte flush, at an aligned and an
-    unaligned output."""
+    """The kernel's decode and its streamed 16-byte flush, at every output
+    alignment modulo 16."""
     path, raws = streams[name]
     comp, table, usz = table_of(path)
     out, status = host_decoder(comp, table, int(usz.sum()), shift)
@@ -340,6 +530,31 @@ def test_wrapper_takes_pinned_tensors_on_a_card():
         B.bgzf_inflate(torch.from_numpy(comp.copy()),
                        torch.from_numpy(table), torch.zeros(1, dtype=torch.uint8),
                        torch.zeros(1, dtype=torch.int32), "cuda")
+
+
+def test_inflate_ab_tells_segments_apart(tmp_path):
+    """scripts/inflate_ab.py's segment kinds on a demo-shaped sample whose
+    unmapped reads follow its mapped ones: the plan's segments, inflated
+    on the host, are mapped, then mixed, then unmapped."""
+    from bench_torch import synth
+    from coverm_tpu_torch.scripts import inflate_ab
+    bam = str(tmp_path / "demo.bam")
+    synth.write_bam(bam, synth.demo(40_000, 8, 20_000, seed=1))
+    with pytest.MonkeyPatch.context() as m:
+        m.setenv("COVERM_TPU_SEGMENT_BYTES", str(1 << 20))
+        mm, off, csz, usz, segments = inflate_ab.segments_of(bam)
+    kinds = [inflate_ab.kind(native.bgzf_inflate_blocks(
+        mm, off[i:k], csz[i:k], usz[i:k]).tobytes()) for i, k in segments]
+    assert kinds[0] == "mapped" and kinds[-1] == "unmapped"
+    assert kinds.count("mixed") <= 1
+    assert kinds == sorted(kinds, key=["mapped", "mixed",
+                                       "unmapped"].index)
+
+
+def test_inflate_ab_needs_a_card(capsys):
+    from coverm_tpu_torch.scripts import inflate_ab
+    assert inflate_ab.main(["x.bam"]) == 2
+    assert "needs an NVIDIA card" in capsys.readouterr().err
 
 
 # ---- the card route's pipeline on the CPU
@@ -579,8 +794,9 @@ def test_cuda_never_reaches_the_host_ingest(bams, monkeypatch):
 @pytest.mark.cuda
 def test_cuda_kernel_equals_host_inflate(streams, tmp_path):
     """The kernel, byte for byte, against ct_bgzf_inflate on every
-    adversarial file and on a bench-shaped BAM, at an unaligned output,
-    and the corrupt blocks flagged."""
+    adversarial and crafted file and on a bench-shaped BAM, at an
+    unaligned output (the 64 KiB blocks at every alignment), the corrupt
+    blocks flagged, and inflate_ab's two launches of it."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     from coverm_tpu_torch.synth import write_sorted_bam
@@ -588,18 +804,18 @@ def test_cuda_kernel_equals_host_inflate(streams, tmp_path):
     write_sorted_bam(bam, n_contigs=4, contig_len=200_000)
     dev = torch.device("cuda")
 
-    def on_card(comp, table, out_size):
+    def on_card(comp, table, out_size, shift=3):
         pin = lambda a: torch.from_numpy(a).pin_memory()  # noqa: E731
-        out = torch.zeros(out_size + 8, dtype=torch.uint8).pin_memory()
+        out = torch.zeros(out_size + 16, dtype=torch.uint8).pin_memory()
         status = torch.full((table.shape[0],), -1,
                             dtype=torch.int32).pin_memory()
         launches = B.bgzf_inflate_launches
         # an empty out has no address: the kernel writes nothing then
-        B.bgzf_inflate(pin(comp), pin(table), out[3:3 + out_size], status,
-                       dev)
+        B.bgzf_inflate(pin(comp), pin(table), out[shift:shift + out_size],
+                       status, dev)
         torch.cuda.synchronize()
         assert B.bgzf_inflate_launches == launches + 1
-        return out.numpy()[3:3 + out_size], status.numpy()
+        return out.numpy()[shift:shift + out_size], status.numpy()
 
     eof_only = str(tmp_path / "eof.gz")
     with open(eof_only, "wb") as f:
@@ -609,10 +825,18 @@ def test_cuda_kernel_equals_host_inflate(streams, tmp_path):
         data = np.fromfile(path, np.uint8)
         off, csz, _ = native.bgzf_scan(data)
         want = native.bgzf_inflate_blocks(data, off, csz, usz)
-        got, status = on_card(comp, table, int(usz.sum()))
-        assert not status.any(), path
-        assert got.tobytes() == want.tobytes(), path
+        # the 64 KiB blocks at every alignment
+        for shift in range(16) if path == streams["full_64k"][0] else (3,):
+            got, status = on_card(comp, table, int(usz.sum()), shift)
+            assert not status.any(), (path, shift)
+            assert got.tobytes() == want.tobytes(), (path, shift)
     for label, m, size in corrupt_cases():
         comp, table = _one_block(m, size)
         got, status = on_card(comp, table, max(size, 0))
         assert bool(status[0]) == zlib_rejects(m, size), label
+    # scripts/inflate_ab.py's launches, the card named without an index
+    # as chip_smoke.py names it (each launch checked there)
+    from coverm_tpu_torch.scripts import inflate_ab
+    record = inflate_ab.run_bam(
+        bam, inflate_ab.launchers(["kernel", "kernel@card"]), dev)
+    assert set(record["variants"]) == {"kernel", "kernel@card"}
