@@ -785,18 +785,25 @@ def _decompress_block(method: int, raw, rsize: int):
     return data
 
 
-def read_block_raw(buf: bytes, p: int) -> tuple:
-    """Block header walk WITHOUT decompression:
-    (method, ctype, cid, raw, rsize, end_p)."""
+def block_span(buf, p: int) -> tuple:
+    """Block header walk that copies nothing:
+    (method, ctype, cid, lo, hi, rsize, end_p), the compressed body
+    at buf[lo:hi] and its crc32 tail at buf[hi:end_p]."""
     method = buf[p]
     ctype = buf[p + 1]
     p += 2
     cid, p = read_itf8(buf, p)
     csize, p = read_itf8(buf, p)
     rsize, p = read_itf8(buf, p)
-    raw = buf[p:p + csize]
-    p += csize + 4  # + crc32 tail (tolerated: some writers emit zeros)
-    return method, ctype, cid, raw, rsize, p
+    # + crc32 tail (tolerated: some writers emit zeros)
+    return method, ctype, cid, p, p + csize, rsize, p + csize + 4
+
+
+def read_block_raw(buf: bytes, p: int) -> tuple:
+    """Block header walk WITHOUT decompression:
+    (method, ctype, cid, raw, rsize, end_p)."""
+    method, ctype, cid, lo, hi, rsize, p = block_span(buf, p)
+    return method, ctype, cid, buf[lo:hi], rsize, p
 
 
 def read_block(buf: bytes, p: int) -> tuple:
@@ -1493,17 +1500,22 @@ class LazyBlock:
     """A compressed external block whose DATA the direct stats decode
     never reads (quality/base/name value streams): only its uncompressed
     size keeps the skip cursors in lockstep, so decompression is skipped
-    entirely.  materialize() decompresses on demand (python fallback)."""
+    entirely, and its compressed body stays where it lies,
+    src[lo:hi].  materialize() decompresses on demand (python
+    fallback)."""
 
-    __slots__ = ("method", "raw", "rsize")
+    __slots__ = ("method", "src", "lo", "hi", "rsize")
 
-    def __init__(self, method, raw, rsize):
+    def __init__(self, method, src, lo, hi, rsize):
         self.method = method
-        self.raw = raw
+        self.src = src
+        self.lo = lo
+        self.hi = hi
         self.rsize = rsize
 
     def materialize(self) -> bytes:
-        return _decompress_block(self.method, self.raw, self.rsize)
+        return _decompress_block(self.method, self.src[self.lo:self.hi],
+                                 self.rsize)
 
 
 _SKIP_BYTE_SERIES = ("RN", "IN", "SC", "BB", "QQ")
@@ -1564,19 +1576,40 @@ def stats_skippable_cids(comp) -> set:
     return skippable - needed
 
 
-def iter_cram_slice_blocks(raw, p, lazy_skippable: bool = False):
-    """Per-slice (comp_block, sh_block, slice header, core, ext_items)
-    tuples from offset `p` (the first data container); block
-    decompression (gzip/rANS) happens HERE, so driving this iterator
-    through a prefetch thread overlaps it with record decoding.
+class SliceTask:
+    """One slice as the container walk leaves it: its compression and
+    slice header blocks (decompressed), the parsed slice header, and its
+    data blocks as spans of the file, nothing of them copied or
+    decompressed. `blocks` holds (method, ctype, cid, q0, lo, hi, rsize,
+    lazy) a block: the block starts at q0, its compressed body is
+    raw[lo:hi], its crc32 tail raw[hi:hi + 4]. `error` is the exception
+    the walk met inside this slice's blocks, raised by slice_block_data
+    after the blocks walked before it are checked, so that it surfaces
+    where the walk met it."""
+
+    __slots__ = ("index", "comp_block", "sh_block", "sl", "blocks", "error")
+
+    def __init__(self, index, comp_block, sh_block, sl):
+        self.index = index
+        self.comp_block = comp_block
+        self.sh_block = sh_block
+        self.sl = sl
+        self.blocks = []
+        self.error = None
+
+
+def walk_cram_slices(raw, p, lazy_skippable: bool = False):
+    """SliceTask per slice from offset `p` (the first data container), in
+    file order: the container walk alone, cheap and sequential, so that
+    each slice's decompression (slice_block_data) can run anywhere.
 
     lazy_skippable=True (the direct-stats route): blocks whose data the
-    stats decode never reads are yielded as LazyBlock placeholders
-    instead of being decompressed — on real files this skips the
-    quality stream, the bulk of every slice's decompression work."""
-    from . import native
+    stats decode never reads are marked lazy, never to be decompressed;
+    on real files this skips the quality stream, the bulk of every
+    slice's decompression work."""
     pp = p
     comp_cache = (None, None)  # (comp data bytes, skippable cid set)
+    index = 0
     while pp < len(raw):
         if raw[pp:pp + len(CRAM_EOF)] == CRAM_EOF:
             return
@@ -1604,66 +1637,95 @@ def iter_cram_slice_blocks(raw, p, lazy_skippable: bool = False):
             sh_block, q = read_block(raw, q)
             if sh_block.content_type != CT_SLICE_HEADER:
                 raise CramFormatError("Expected slice header block")
-            sl = parse_slice_header(sh_block.data)
-            hdrs = []
-            for _ in range(sl.n_blocks):
-                q0 = q
-                m, ct, cid, rw, rs, q = read_block_raw(raw, q)
-                lazy = (ct == CT_EXTERNAL and cid in skip_cids
-                        and cid != sl.embedded_ref_id)
-                if lazy:
+            task = SliceTask(index, comp_block, sh_block,
+                             parse_slice_header(sh_block.data))
+            index += 1
+            try:
+                for _ in range(task.sl.n_blocks):
+                    q0 = q
+                    m, ct, cid, lo, hi, rs, q = block_span(raw, q)
+                    lazy = (ct == CT_EXTERNAL and cid in skip_cids
+                            and cid != task.sl.embedded_ref_id)
                     # a skipped block is never decompressed, so it must
                     # be bounds-checked HERE: python slicing silently
                     # truncates past EOF, and a truncated tail block
                     # would otherwise pass (the decompressing path
                     # catches this via the raw-size mismatch)
-                    if q > len(raw):
+                    if lazy and q > len(raw):
                         raise CramFormatError(
                             "Truncated CRAM file (block extends past "
                             "end of file)")
-                    # ...and its only integrity check is the CRC tail
-                    # (verified over the COMPRESSED body — cheap,
-                    # zero-copy via a memoryview scoped to this block:
-                    # a longer-lived view over an mmap would block the
-                    # caller's mm.close()); a zero CRC is tolerated
-                    # like everywhere else (some writers emit zeros)
-                    mv = memoryview(raw)
-                    try:
-                        stored = int.from_bytes(mv[q - 4:q], "little")
-                        bad = stored and \
-                            zlib.crc32(mv[q0:q - 4]) != stored
-                    finally:
-                        mv.release()
-                    if bad:
-                        raise CramFormatError(
-                            f"CRAM block CRC mismatch (content id {cid})")
-                hdrs.append([m, ct, cid, rw, rs, None, lazy])
-            # threaded batch decode of the slice's rANS blocks; on any
-            # failure fall through to per-block decode for full error
-            # context
-            ridx = [k for k, h in enumerate(hdrs)
-                    if h[0] == M_RANS and not h[6]]
-            if len(ridx) > 1:
-                outs = native.rans_decode_batch(
-                    [hdrs[k][3] for k in ridx],
-                    [hdrs[k][4] for k in ridx])
-                if outs is not None:
-                    for k, d in zip(ridx, outs):
-                        hdrs[k][5] = d
-            core_data = b""
-            ext_items = []
-            for m, ct, cid, rw, rs, d, lazy in hdrs:
-                if lazy:
-                    ext_items.append((cid, LazyBlock(m, rw, rs)))
-                    continue
-                if d is None:
-                    d = _decompress_block(m, rw, rs)
-                if ct == CT_CORE:
-                    core_data = d
-                elif ct == CT_EXTERNAL:
-                    ext_items.append((cid, d))
-            yield comp_block, sh_block, sl, core_data, ext_items
+                    task.blocks.append((m, ct, cid, q0, lo, hi, rs, lazy))
+            except Exception as e:
+                task.error = e
+                yield task
+                return
+            yield task
         pp = end
+
+
+def slice_block_data(raw, task: SliceTask, rans_threads: int = 0):
+    """(core_data, ext_items) of a walked slice: its lazy blocks' CRCs
+    checked, the walk's error raised if it met one in this slice, its
+    rANS blocks decoded in one threaded batch (`rans_threads` as
+    native.rans_decode_batch takes them), every other block not lazy
+    decompressed (gzip, bzip2, lzma, raw), in block order. ext_items
+    holds (content id, data), a LazyBlock for a lazy block."""
+    from . import native
+    hdrs = task.blocks
+    for _m, _ct, cid, q0, _lo, hi, _rs, lazy in hdrs:
+        if lazy:
+            # a lazy block's only integrity check is the CRC tail
+            # (verified over the COMPRESSED body — cheap, zero-copy via
+            # a memoryview scoped to this block: a longer-lived view
+            # over an mmap would block the caller's mm.close()); a zero
+            # CRC is tolerated like everywhere else (some writers emit
+            # zeros)
+            mv = memoryview(raw)
+            try:
+                stored = int.from_bytes(mv[hi:hi + 4], "little")
+                bad = stored and zlib.crc32(mv[q0:hi]) != stored
+            finally:
+                mv.release()
+            if bad:
+                raise CramFormatError(
+                    f"CRAM block CRC mismatch (content id {cid})")
+    if task.error is not None:
+        raise task.error
+    datas = [None] * len(hdrs)
+    # threaded batch decode of the slice's rANS blocks; on any failure
+    # fall through to per-block decode for full error context
+    ridx = [k for k, h in enumerate(hdrs) if h[0] == M_RANS and not h[7]]
+    if len(ridx) > 1:
+        outs = native.rans_decode_batch(
+            [raw[hdrs[k][4]:hdrs[k][5]] for k in ridx],
+            [hdrs[k][6] for k in ridx], n_threads=rans_threads)
+        if outs is not None:
+            for k, d in zip(ridx, outs):
+                datas[k] = d
+    core_data = b""
+    ext_items = []
+    for (m, ct, cid, _q0, lo, hi, rs, lazy), d in zip(hdrs, datas):
+        if lazy:
+            ext_items.append((cid, LazyBlock(m, raw, lo, hi, rs)))
+            continue
+        if d is None:
+            d = _decompress_block(m, raw[lo:hi], rs)
+        if ct == CT_CORE:
+            core_data = d
+        elif ct == CT_EXTERNAL:
+            ext_items.append((cid, d))
+    return core_data, ext_items
+
+
+def iter_cram_slice_blocks(raw, p):
+    """Per-slice (comp_block, sh_block, slice header, core, ext_items)
+    tuples from offset `p` (the first data container), every block
+    decompressed HERE, so driving this iterator through a prefetch
+    thread overlaps it with record decoding."""
+    for task in walk_cram_slices(raw, p):
+        core_data, ext_items = slice_block_data(raw, task)
+        yield task.comp_block, task.sh_block, task.sl, core_data, ext_items
 
 
 def decode_slice_python(comp, sl, core_data, ext_items):

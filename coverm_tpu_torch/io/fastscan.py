@@ -33,6 +33,7 @@ relative rounding when a contig spans a chunk boundary.
 from __future__ import annotations
 
 import os
+import threading
 
 import numpy as np
 
@@ -308,43 +309,109 @@ class FusedScanStream:
                 yield arr, 0, arr.size
 
 
+def cram_workers() -> int:
+    """Threads that decode CRAM slices at once on the direct-stats route:
+    one a host CPU, at most 8, as the native calls count them."""
+    return min(os.cpu_count() or 1, 8)
+
+
+def _decode_cram_slice(raw, task, n_ref, skip_mask, req_mask, stop):
+    """A pool worker's share of one slice: the CRC checks, inflate and
+    rANS decode of its blocks (one rANS thread: the pool is the
+    parallelism), then ct_cram_stats_slice; zlib and ctypes release the
+    GIL for both. Touches no StatsAccum. Returns (dec, blocks): dec the
+    native handle and scalars, or None where the native decoder rejects
+    the slice, and then blocks = (core, ext_items) for the python
+    fallback. Once `stop` is set it returns (None, None) at its next
+    step."""
+    from .cram import slice_block_data
+
+    if stop.is_set():
+        return None, None
+    core, ext_items = slice_block_data(raw, task, rans_threads=1)
+    if stop.is_set():
+        return None, None
+    dec = native.cram_stats_decode(task.comp_block.data, task.sh_block.data,
+                                   core, ext_items, n_ref, skip_mask,
+                                   req_mask)
+    return dec, None if dec is not None else (core, ext_items)
+
+
 def _cram_slice_blocks(stream, stats, skip_mask, req_mask):
     """Per-slice (btid, bstart, bend, seg_counts) via the native direct
     stats decoder, falling back to the python record model + stats_scan
     for any slice the native decoder rejects (identical outcome either
     way: the python path raises CramFormatError loudly on real
-    corruption).  Block decompression rides the prefetch thread.  The
-    stream's CRAM plan is closed when the slices end, on error too."""
+    corruption).
+
+    The container walk runs on this thread, at most 2 x cram_workers()
+    slices ahead of the slice it hands on (host memory stays bounded);
+    each slice's blocks and native decode go to a pool of
+    cram_workers() threads (_decode_cram_slice), and every
+    result is taken strictly in file order: this thread adds it into
+    `stats` (so the float64 identity sums add in the order of a
+    sequential scan), runs a rejected slice's fallback, and raises a
+    slice's error, or the walk's, where that slice or the walk's
+    position comes in the file. On every exit the pool is stopped and
+    joined and the handles not taken are freed before the stream's CRAM
+    plan, the mmap the workers read, is closed."""
     import struct
     import zlib
+    from collections import deque
+    from concurrent.futures import ThreadPoolExecutor
 
-    from ..prefetch import prefetch_iter
     from .cram import (CramFormatError, _bam_record_bytes,
-                       decode_slice_python, iter_cram_slice_blocks,
-                       parse_compression_header)
+                       decode_slice_python, parse_compression_header,
+                       walk_cram_slices)
 
     mm, body_off, _f = stream._cram
+    lib = native.get_lib()
+    workers = cram_workers()
+    stop = threading.Event()
+    pool = ThreadPoolExecutor(workers, thread_name_prefix="cram-slice")
+    tasks = walk_cram_slices(mm, body_off, lazy_skippable=True)
+    pending = deque()  # (task, future) in file order
+    walk_error = None
     comp_cache = (None, None)
-    slices = prefetch_iter(iter_cram_slice_blocks(mm, body_off,
-                                                  lazy_skippable=True))
     try:
-        for comp_block, sh_block, sl, core_data, ext_items in slices:
-            res = native.cram_stats_slice(comp_block.data, sh_block.data,
-                                          core_data, ext_items, stats,
-                                          skip_mask, req_mask)
-            if res is not None:
-                yield res
+        while True:
+            while tasks is not None and len(pending) < 2 * workers:
+                try:
+                    task = next(tasks)
+                except StopIteration:
+                    tasks = None
+                    break
+                except Exception as e:  # raised after the slices before
+                    walk_error, tasks = e, None
+                    break
+                pending.append((task, pool.submit(
+                    _decode_cram_slice, mm, task, stats.n_ref, skip_mask,
+                    req_mask, stop)))
+            if not pending:
+                if walk_error is not None:
+                    raise walk_error
+                return
+            task, fut = pending[0]
+            dec, blocks = fut.result()  # the slice's own error, in order
+            pending.popleft()
+            if dec is not None:
+                h, scalars = dec
+                res = native._finish_stats_handle(lib, h, scalars, stats,
+                                                  leftover_from_buf=False)
+                yield res[:4]
                 continue
             # python fallback for this slice; the cache holds the block
             # object itself so identity stays valid.  Size-only streams
             # decompress here after all — the fallback reads them.
+            core_data, ext_items = blocks
             ext_items = [(cid, d.materialize() if hasattr(d, "rsize")
                           else d) for cid, d in ext_items]
+            comp_block = task.comp_block
             comp = comp_cache[1] if comp_cache[0] is comp_block else None
             if comp is None:
                 comp = parse_compression_header(comp_block.data)
                 comp_cache = (comp_block, comp)
-            recs = decode_slice_python(comp, sl, core_data, ext_items)
+            recs = decode_slice_python(comp, task.sl, core_data, ext_items)
             part = bytearray()
             for r in recs:
                 part += _bam_record_bytes(r)
@@ -365,8 +432,17 @@ def _cram_slice_blocks(stream, stats, skip_mask, req_mask):
             "newer CRAM minor version re-encode it, e.g.: samtools view "
             "-C --output-fmt cram,version=3.0 in.cram") from e
     finally:
-        # join the decode thread before the mmap under it goes
-        slices.close()
+        # no worker may be inside the mmap, nor a handle left, when the
+        # plan closes
+        stop.set()
+        pool.shutdown(wait=True, cancel_futures=True)
+        for _task, fut in pending:
+            if not fut.cancelled() and fut.exception() is None:
+                dec = fut.result()[0]
+                if dec is not None:
+                    lib.ct_stats_free(dec[0])
+        if tasks is not None:
+            tasks.close()
         stream.close()
 
 

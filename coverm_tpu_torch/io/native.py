@@ -574,19 +574,35 @@ def cram_decode_slice(comp_hdr, slice_hdr, core, ext_items, rg_blob):
     return out.tobytes(), int(scalars[0]), int(scalars[3])
 
 
-def cram_stats_slice(comp_hdr, slice_hdr, core, ext_items,
-                     acc: StatsAccum, skip_mask: int, req_mask: int):
+def cram_stats_decode(comp_hdr, slice_hdr, core, ext_items, n_ref: int,
+                      skip_mask: int, req_mask: int):
     """Native CRAM slice decode STRAIGHT into the fused-scan stats model
-    (no BAM wire bytes, no re-scan): accumulates per-contig statistics
-    into `acc` and returns (btid, bstart, bend, seg_counts), or None
-    (unavailable / malformed -> the caller falls back to the python
-    record model + stats_scan for this slice)."""
+    (no BAM wire bytes, no re-scan): (handle, scalars) of
+    ct_cram_stats_slice, or None (unavailable / malformed -> the caller
+    falls back to the python record model + stats_scan for this slice).
+    It touches no StatsAccum, so slices can decode on several threads;
+    the caller hands each handle, in slice order, to
+    _finish_stats_handle, which adds it into the StatsAccum and frees
+    it (or frees it with ct_stats_free)."""
     lib = get_lib()
     if lib is None or not hasattr(lib, "ct_cram_stats_slice"):
         return None
-    comp = _as_u8(comp_hdr)
-    sh = _as_u8(slice_hdr)
-    cr = _as_u8(core)
+    comp, sh, cr, buf, off, sizes, ids = _cram_stats_args(
+        comp_hdr, slice_hdr, core, ext_items)
+    scalars = np.zeros(11, np.int64)
+    h = lib.ct_cram_stats_slice(_u8p(comp), comp.size, _u8p(sh), sh.size,
+                                _u8p(cr), cr.size, _u8p(buf), _i64p(off),
+                                _i64p(sizes), _i64p(ids), ids.size,
+                                n_ref, skip_mask, req_mask, _i64p(scalars))
+    if not h:
+        return None
+    return h, scalars
+
+
+def _cram_stats_args(comp_hdr, slice_hdr, core, ext_items):
+    """ct_cram_stats_slice's buffers: the headers and core as uint8
+    arrays, the external blocks joined into one buffer with their
+    offsets, uncompressed sizes and content ids."""
     # an ext item may be a LazyBlock (size-only stream, never
     # decompressed): it contributes NO bytes to the buffer but its
     # uncompressed size keeps the native skip cursors in lockstep
@@ -599,24 +615,16 @@ def cram_stats_slice(comp_hdr, slice_hdr, core, ext_items,
     off = np.zeros(ids.size + 1, np.int64)
     if ids.size:
         np.cumsum([len(b) for b in present], out=off[1:])
-    buf = _as_u8(b"".join(present))
-    scalars = np.zeros(11, np.int64)
-    h = lib.ct_cram_stats_slice(_u8p(comp), comp.size, _u8p(sh), sh.size,
-                                _u8p(cr), cr.size, _u8p(buf), _i64p(off),
-                                _i64p(sizes), _i64p(ids), ids.size,
-                                acc.n_ref, skip_mask,
-                                req_mask, _i64p(scalars))
-    if not h:
-        return None
-    btid, bstart, bend, seg_counts, _ = _finish_stats_handle(
-        lib, h, scalars, acc, leftover_from_buf=False)
-    return btid, bstart, bend, seg_counts
+    return (_as_u8(comp_hdr), _as_u8(slice_hdr), _as_u8(core),
+            _as_u8(b"".join(present)), off, sizes, ids)
 
 
-def rans_decode_batch(blobs, out_sizes) -> list | None:
+def rans_decode_batch(blobs, out_sizes, n_threads: int = 0) -> list | None:
     """Threaded decode of independent rANS blocks -> list of bytes, or
     None (unavailable / any block malformed -> caller decodes blocks
-    one by one with full error context)."""
+    one by one with full error context). n_threads <= 0 takes
+    min(cpu_count + 1, 8); a caller that is itself one of several
+    threads passes 1."""
     lib = get_lib()
     if lib is None or not hasattr(lib, "ct_rans_decode_batch"):
         return None
@@ -627,9 +635,10 @@ def rans_decode_batch(blobs, out_sizes) -> list | None:
     np.cumsum(out_sizes, out=out_off[1:])
     in_buf = _as_u8(b"".join(bytes(b) for b in blobs))
     out = np.empty(max(int(out_off[-1]), 1), np.uint8)
-    nt = min((os.cpu_count() or 1) + 1, 8)
+    if n_threads <= 0:
+        n_threads = min((os.cpu_count() or 1) + 1, 8)
     rc = lib.ct_rans_decode_batch(_u8p(in_buf), _i64p(in_off), _u8p(out),
-                                  _i64p(out_off), n, nt)
+                                  _i64p(out_off), n, n_threads)
     if rc != 0:
         return None
     buf = out.tobytes()

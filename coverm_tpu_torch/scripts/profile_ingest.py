@@ -41,11 +41,36 @@ set (VmRSS) that a thread reading /proc/self/status every 10 ms saw
 while the stage ran (the high-water mark VmHWM cannot be reset on every
 machine, and getrusage's ru_maxrss never can).
 
+With --cram it profiles a CRAM's direct-stats route instead
+(io/fastscan._cram_slice_blocks), each stage the best of --reps passes:
+
+  sequential        - the route on one thread, slice by slice, its stages
+                      timed apart and summed over the slices, and apart
+                      again for the unmapped slices (reference id -1):
+                        walk        the container walk (cram.walk_cram_slices)
+                        decompress  the blocks' CRC checks, gzip and rANS
+                                    (cram.slice_block_data)
+                        glue        native.cram_stats_decode's Python: the
+                                    external blocks joined, the arrays made
+                        ct_decode   ct_cram_stats_slice itself
+                        finish      native._finish_stats_handle, in order
+  pool              - _cram_slice_blocks as the scan runs it: the walk and
+                      the in-order finish on the calling thread, the rest
+                      on io/fastscan.cram_workers() threads; the wall
+                      seconds, each stage's seconds summed over the
+                      threads, and the calling thread's seconds outside
+                      the walk and the finish (its wait for the pool)
+  e2e, stubbed      - io/fastscan.scan_sample_fused with the depth engine
+                      stubbed: bench_torch/run.py's ingest_s
+  e2e               - the same with the sweep engine on the device, the
+                      sweep-scan kernel's launches counted
+
 Run: python -m coverm_tpu_torch.scripts.profile_ingest [bam] [--reps 3]
-         [--device cpu]
+         [--device cpu] [--cram]
 Without a BAM it writes the bench BAM (synth.write_sorted_bam's
 defaults: 32 contigs x 1 Mbp at 20x, 150 bp reads) in a temporary
-directory. Ends with one JSON line.
+directory, or with --cram its CRAM twin (synth.write_cram_twin). Ends
+with one JSON line.
 """
 
 from __future__ import annotations
@@ -77,6 +102,7 @@ STAGES = [("bgzf_scan", "bgzf scan"), ("inflate", "inflate"),
 SEGMENTED = ("inflate", "phase1", "full_parse", "stats_scan", "bookkeep")
 PROLOGUE = ("prep_segments", "choose_payload", "encode_start_deltas",
             "_pack_u8")
+CRAM_STAGES = ("walk", "decompress", "glue", "ct_decode", "finish")
 
 
 def rss_bytes() -> int:
@@ -139,11 +165,16 @@ def _stub(layout, *_, **kw):
                          kw.get("trim"))
 
 
-def _open(path):
+def _open(path, cram=False):
     from ..io.fastscan import FusedScanStream
     stream = FusedScanStream(path)
     header = stream.open()
-    if stream._plan is None:
+    if cram and stream._cram is None:
+        stream.close()
+        raise ValueError(f"{path} is not a CRAM the direct-stats route "
+                         "decodes")
+    if not cram and stream._plan is None:
+        stream.close()
         raise ValueError(f"{path} is not a BGZF BAM the native ingest plans")
     return stream, header
 
@@ -286,15 +317,16 @@ def card_inflate_pass(path, device):
             B.bgzf_inflate_launches - before, inf.pinned_bytes, allocated)
 
 
-def e2e_pass(path, device, stub=False):
-    """io/fastscan.scan_sample_fused over the BAM on `device`: with the
-    sweep engine there, or with it stubbed (stub=True). Returns (mapped
-    reads counted, blocks given to the stub, None with the engine)."""
+def e2e_pass(path, device, stub=False, cram=False):
+    """io/fastscan.scan_sample_fused over the BAM (or CRAM) on `device`:
+    with the sweep engine there, or with it stubbed (stub=True). Returns
+    (mapped reads counted, blocks given to the stub, None with the
+    engine)."""
     from ..flags import FlagFilter
     from ..io.fastscan import scan_sample_fused
     from ..ops.depth import ReferenceLayout
 
-    stream, header = _open(path)
+    stream, header = _open(path, cram)
     layout = ReferenceLayout.build(header.target_lens, EE)
     blocks = 0 if stub else None
 
@@ -369,6 +401,214 @@ def upload_s(bufs, device) -> float:
             torch.cuda.synchronize(device)
         total += time.perf_counter() - t0
     return total
+
+
+@contextlib.contextmanager
+def cram_stage_timers(totals):
+    """Add the seconds of each CRAM_STAGES stage into totals[stage],
+    from whichever thread runs it, while the block runs: the walk's
+    next() calls, cram.slice_block_data, native._cram_stats_args (glue),
+    native.cram_stats_decode less its glue (ct_decode) and
+    native._finish_stats_handle."""
+    from ..io import cram as C
+    from ..io import native as N
+    lock = threading.Lock()
+    glue_s = threading.local()
+
+    def add(stage, dt):
+        with lock:
+            totals[stage] += dt
+
+    def timed(stage, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                dt = time.perf_counter() - t0
+                if stage == "glue":
+                    glue_s.s = getattr(glue_s, "s", 0.0) + dt
+                add(stage, dt)
+        return run
+
+    def timed_decode(*args, **kwargs):
+        glue_s.s = 0.0
+        t0 = time.perf_counter()
+        try:
+            return decode(*args, **kwargs)
+        finally:
+            add("ct_decode", time.perf_counter() - t0 - glue_s.s)
+
+    def timed_walk(*args, **kwargs):
+        gen = walk(*args, **kwargs)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                task = next(gen)
+            except StopIteration:
+                return
+            finally:
+                add("walk", time.perf_counter() - t0)
+            yield task
+
+    walk, decode = C.walk_cram_slices, N.cram_stats_decode
+    origs = [(C, "walk_cram_slices", walk),
+             (C, "slice_block_data", C.slice_block_data),
+             (N, "_cram_stats_args", N._cram_stats_args),
+             (N, "cram_stats_decode", decode),
+             (N, "_finish_stats_handle", N._finish_stats_handle)]
+    C.walk_cram_slices = timed_walk
+    C.slice_block_data = timed("decompress", C.slice_block_data)
+    N._cram_stats_args = timed("glue", N._cram_stats_args)
+    N.cram_stats_decode = timed_decode
+    N._finish_stats_handle = timed("finish", N._finish_stats_handle)
+    try:
+        yield
+    finally:
+        for mod, name, fn in origs:
+            setattr(mod, name, fn)
+
+
+def cram_sequential_pass(path):
+    """The direct-stats route on this thread alone, slice by slice: (wall
+    seconds, seconds by stage, seconds by stage of the unmapped slices,
+    counts). A slice the native decoder rejects is counted, not
+    decoded."""
+    from ..flags import FlagFilter
+    from ..io import cram as C
+    from ..io import native as N
+
+    stream, header = _open(path, cram=True)
+    mm, body_off, _f = stream._cram
+    skip, req = FlagFilter().masks()
+    stats = N.StatsAccum(header.n_ref)
+    lib = N.get_lib()
+    totals = dict.fromkeys(CRAM_STAGES, 0.0)
+    unmapped = dict.fromkeys(CRAM_STAGES, 0.0)
+    n = {"slices": 0, "unmapped_slices": 0, "rejected_slices": 0,
+         "blocks": 0}
+    t_start = time.perf_counter()
+    try:
+        with cram_stage_timers(totals):
+            tasks = C.walk_cram_slices(mm, body_off, lazy_skippable=True)
+            while True:
+                before = dict(totals)
+                task = next(tasks, None)
+                if task is None:
+                    break
+                core, ext = C.slice_block_data(mm, task)
+                dec = N.cram_stats_decode(
+                    task.comp_block.data, task.sh_block.data, core, ext,
+                    header.n_ref, skip, req)
+                if dec is None:
+                    n["rejected_slices"] += 1
+                else:
+                    bt = N._finish_stats_handle(lib, *dec, stats, False)[0]
+                    n["blocks"] += bt.size
+                n["slices"] += 1
+                if task.sl.ref_id == -1:
+                    n["unmapped_slices"] += 1
+                    for k in CRAM_STAGES:
+                        unmapped[k] += totals[k] - before[k]
+    finally:
+        stream.close()
+    n["records"] = stats.n_records
+    return time.perf_counter() - t_start, totals, unmapped, n
+
+
+def cram_pool_pass(path):
+    """io/fastscan._cram_slice_blocks over the CRAM: (wall seconds,
+    seconds by stage summed over the threads, counts)."""
+    from ..flags import FlagFilter
+    from ..io import native as N
+    from ..io.fastscan import _cram_slice_blocks
+
+    stream, header = _open(path, cram=True)
+    stats = N.StatsAccum(header.n_ref)
+    totals = dict.fromkeys(CRAM_STAGES, 0.0)
+    blocks = slices = 0
+    t0 = time.perf_counter()
+    with cram_stage_timers(totals):
+        for bt, _bs, _be, _counts in _cram_slice_blocks(
+                stream, stats, *FlagFilter().masks()):
+            blocks += bt.size
+            slices += 1
+    return (time.perf_counter() - t0, totals,
+            {"slices": slices, "records": stats.n_records, "blocks": blocks})
+
+
+def profile_cram(path, reps=3, device=None, out=print):
+    """Every CRAM stage of the module docstring over the CRAM at `path`,
+    each the best of `reps` passes; prints one line a stage and returns
+    the record of them all."""
+    from ..device import resolve_device
+    from ..io import native
+    from ..io.fastscan import cram_workers
+    from ..ops import sweep_scan as K
+
+    dev = resolve_device(device)
+    if native.get_lib() is None:
+        raise RuntimeError("the native ingest library is off "
+                           "(COVERM_TPU_NO_NATIVE); nothing to profile")
+    size = os.path.getsize(path)
+    out(f"file: {path} ({size / 1e6:.0f} MB, CRAM)")
+    rss_at_start = rss_bytes()
+    stages = {}
+
+    with RssPeak() as rss:
+        seq = min((cram_sequential_pass(path) for _ in range(reps)),
+                  key=lambda r: r[0])
+    wall, totals, unmapped, counts = seq
+    stages["sequential"] = {"s": wall, "peak_rss_bytes": rss.peak,
+                            "stage_s": totals, "unmapped_stage_s": unmapped,
+                            **counts}
+    with RssPeak() as rss:
+        pool = min((cram_pool_pass(path) for _ in range(reps)),
+                   key=lambda r: r[0])
+    wall, totals, counts = pool
+    stages["pool"] = {"s": wall, "peak_rss_bytes": rss.peak,
+                      "workers": cram_workers(), "stage_thread_s": totals,
+                      "caller_wait_s": wall - totals["walk"]
+                      - totals["finish"], **counts}
+
+    def stub():
+        return e2e_pass(path, dev, stub=True, cram=True)
+    with RssPeak() as rss:
+        times, got = [], None
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            got = stub()
+            times.append(time.perf_counter() - t0)
+    stages["e2e_stub"] = {"s": min(times), "peak_rss_bytes": rss.peak,
+                          "mapped_reads": got[0], "blocks": got[1]}
+
+    launches = set()
+    with RssPeak() as rss:
+        times = []
+        for _ in range(reps):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            K.sweep_scan_launches = 0
+            t0 = time.perf_counter()
+            rec, _ = e2e_pass(path, dev, cram=True)
+            times.append(time.perf_counter() - t0)
+            launches.add(K.sweep_scan_launches)
+    if len(launches) != 1:
+        raise RuntimeError(f"the e2e passes launched the sweep-scan kernel "
+                           f"{sorted(launches)} times")
+    stages["e2e"] = {"s": min(times), "peak_rss_bytes": rss.peak,
+                     "mapped_reads": rec, "k1_launches": launches.pop(),
+                     "device": str(dev)}
+
+    for key, st in stages.items():
+        said = ", ".join(
+            f"{k} " + (" ".join(f"{a} {b:.3f}" for a, b in v.items())
+                       if isinstance(v, dict) else f"{v}")
+            for k, v in st.items() if k not in ("s", "peak_rss_bytes"))
+        out(f"{key:12s} {st['s']:7.3f}s  peak RSS "
+            f"{st['peak_rss_bytes'] / 1e9:.2f} GB  {said}")
+    return {"cram": path, "cram_bytes": size, "reps": reps,
+            "stages": stages, "rss_at_start_bytes": rss_at_start}
 
 
 def profile(path, reps=3, device=None, out=print):
@@ -520,19 +760,27 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         description=__doc__.split("\n\n")[0])
     p.add_argument("bam", nargs="?", default=None,
-                   help="a sorted BGZF BAM (default: write the bench BAM)")
+                   help="a sorted BGZF BAM, or with --cram a sorted CRAM "
+                        "(default: write the bench BAM)")
     p.add_argument("--reps", type=int, default=3)
+    p.add_argument("--cram", action="store_true",
+                   help="profile a CRAM's direct-stats route (default: "
+                        "write the bench BAM's CRAM twin)")
     add_device_arg(p)
     args = p.parse_args(argv)
     from ..device import resolve_device
     dev = resolve_device(args.device)
     with tempfile.TemporaryDirectory() as work:
         path = args.bam
-        if path is None:
+        if path is None and args.cram:
+            from ..synth import write_cram_twin
+            path = os.path.join(work, "bench.cram")
+            write_cram_twin(path)
+        elif path is None:
             from ..synth import write_sorted_bam
             path = os.path.join(work, "bench.bam")
             write_sorted_bam(path)
-        res = profile(path, args.reps, dev)
+        res = (profile_cram if args.cram else profile)(path, args.reps, dev)
     print(result_line(dev, tool="profile_ingest", **res))
     return 0
 

@@ -120,7 +120,8 @@ def scan_both(path, route, monkeypatch, ff=None, need_hist=False,
     if route == "legacy":
         monkeypatch.setenv("COVERM_TPU_CRAM_STATS", "0")
     if route == "fallback":
-        monkeypatch.setattr(native, "cram_stats_slice", lambda *a, **k: None)
+        monkeypatch.setattr(native, "cram_stats_decode",
+                            lambda *a, **k: None)
         monkeypatch.setattr(jnative, "cram_stats_slice",
                             lambda *a, **k: None)
     s = FusedScanStream(path)

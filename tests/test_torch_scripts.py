@@ -11,7 +11,10 @@ scripts/ and engines, on the CPU.
   and exits 1.
 - profile_ingest: the record, block and byte counts of its stages equal
   the JAX package's parse_records_full, bgzf_inflate_blocks and
-  ingest_scan over the whole file, at 1 MB segments and at the default.
+  ingest_scan over the whole file, at 1 MB segments and at the default;
+  with --cram, over the first BAM's CRAM twin, the slices, records and
+  blocks of its sequential and pool passes equal the JAX package's
+  direct-stats scan.
 - scaling_bench: at 200,000 reads one rank and two gloo ranks give the
   same checksum, equal to the JAX package's compute_depth_stats_sweep on
   the JAX script's build_workload; each rank is pinned to one card.
@@ -198,6 +201,48 @@ def test_profile_ingest_counts_equal_the_jax_package(bams, segment_bytes):
     assert res["prologue_s"]["batches"] >= 1
     assert all(v["peak_rss_bytes"] > 0 for v in st.values())
     assert res["rss_at_start_bytes"] > 0 and res["card"] is None
+
+
+def test_profile_ingest_cram_counts_equal_the_jax_package(tmp_path):
+    """--cram: the sequential and the pool pass read every slice, record
+    and block that the JAX package's direct-stats scan reads, and the
+    stubbed pass hands on its blocks."""
+    from coverm_tpu.flags import FlagFilter as JFlagFilter
+    from coverm_tpu.io import native as jn
+    from coverm_tpu.io.fastscan import FusedScanStream as JFused
+    from coverm_tpu.io.fastscan import _cram_slice_blocks
+    from coverm_tpu_torch.scripts.profile_ingest import CRAM_STAGES
+    from coverm_tpu_torch.synth import write_cram_twin
+
+    path = str(tmp_path / "flat.cram")
+    write_cram_twin(path, per_slice=500, **BAMS["flat"])
+    proc = _run([sys.executable, "-m",
+                 "coverm_tpu_torch.scripts.profile_ingest", path, "--cram",
+                 "--reps", "1", "--device", "cpu"])
+    assert proc.returncode == 0, proc.stderr
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    st = res["stages"]
+    assert list(st) == ["sequential", "pool", "e2e_stub", "e2e"]
+    js = JFused(path)
+    jh = js.open()
+    stats = jn.StatsAccum(jh.n_ref)
+    slices = list(_cram_slice_blocks(js, stats, *JFlagFilter().masks()))
+    blocks = sum(s[0].size for s in slices)
+    seq, pool = st["sequential"], st["pool"]
+    for got in (seq, pool):
+        assert got["slices"] == len(slices) > 10
+        assert got["records"] == stats.n_records
+        assert got["blocks"] == blocks
+    assert seq["rejected_slices"] == seq["unmapped_slices"] == 0
+    assert list(seq["stage_s"]) == list(pool["stage_thread_s"]) \
+        == list(CRAM_STAGES)
+    assert all(v > 0 for v in seq["stage_s"].values())
+    assert pool["workers"] >= 1
+    assert st["e2e_stub"]["blocks"] == blocks
+    assert st["e2e"]["mapped_reads"] == st["e2e_stub"]["mapped_reads"]
+    assert st["e2e"]["k1_launches"] == 0  # the plain version on the CPU
+    assert all(v["peak_rss_bytes"] > 0 and v["s"] > 0 for v in st.values())
+    assert res["card"] is None
 
 
 def _jax_script(name):
