@@ -6,9 +6,10 @@
 Phases, in order; any failure exits non-zero:
 
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build: the sweep-scan and BGZF inflate kernels (csrc/sweep_scan.cu,
-     csrc/bgzf_inflate.cu, nvcc for sm_90a) and the native BAM ingest
-     library, all from this checkout and started together;
+  2. build: the sweep-scan, BGZF inflate and BAM record-scan kernels
+     (csrc/sweep_scan.cu, csrc/bgzf_inflate.cu, csrc/bam_scan.cu, nvcc
+     for sm_90a) and the native BAM ingest library, all from this
+     checkout and started together;
   3. kernel vs plain version on an adversarial case: blocks given to the
      sweep engine on the card, the kernel's inputs (sorted keys, length
      table) taken from the engine's own launch and held against
@@ -20,8 +21,10 @@ Phases, in order; any failure exits non-zero:
      the card: a warm-up run that records the inputs of every kernel
      launch and every engine batch, then a run with the kernels' launch
      counts set to 0 just before and read just after (one K1 launch per
-     engine batch, one inflate launch per BGZF segment: the fused ingest
-     inflates on the card), and the peak device memory of that run; the
+     engine batch, one inflate and one record scan per BGZF segment: the
+     fused ingest inflates and scans on the card, and the host's
+     stats_scan is never called), and the peak device memory of that
+     run; the
      TSV must
      equal the same command on the CPU (the plain path) and the per-contig
      statistics the numpy oracle's. The kernel is then held against its
@@ -122,13 +125,24 @@ Phases, in order; any failure exits non-zero:
      on the card's own, on phase 4's BAM (zlib level 1), on its blocks at
      level 6 (zlib's default, which samtools writes) and on a 5 M-read
      sample shaped as the benchmark's (bench_torch/synth.py), its mapped
-     and unmapped segments apart.
+     and unmapped segments apart;
+ 23. the BAM record scan (ops/bam_scan.py) bit for bit against the
+     host's ct_stats_scan (native.stats_scan) and its plain version on
+     the CPU tests' adversarial streams (tests/test_torch_bam_scan.py),
+     unfiltered and under metabat's filter, then on phase 4's BAM segment
+     by segment as the main path hands them over (the inflate's card
+     slot, the carry before it; also against the plain version, timed)
+     and on phase 17's 32 MiB metabat segments under its filter: blocks,
+     per-contig counts, runs, scalars and carry; its ms (CUDA events
+     around each call, and by step) beside its bound and the plain
+     version's.
 
 Phases 4 to 11 and 17 each run their command once to warm up (recording the
 kernel's inputs and the engine's batches), then once with the kernels'
 launch counts set to 0 just before and read just after: K1's must equal
-the number of engine batches and be above 0, the inflate's the number of
-BGZF segments of a streamed BAM (phases 4 and 17), 0 on the other routes. They run with COVERM_TPU_MESH=0,
+the number of engine batches and be above 0, the inflate's and the
+record scan's the number of BGZF segments of a streamed BAM (phases 4
+and 17), 0 on the other routes. They run with COVERM_TPU_MESH=0,
 so that on a machine with several cards they still take the single-card
 engine; phases 13-16 drive the multi-device engines. Mapping from reads and `makedb`
 are not driven here: they need a mapper binary, which this script does
@@ -136,8 +150,9 @@ not assume. `cluster` runs on the host only and needs no card. The CPU
 tests hold all three against the JAX package (with tests/fake_mapper.py
 and fake skani and fastANI executables).
 
-Prints the card line, then one {"kernels": [...]} JSON line (K1 and the
-inflate kernel, each with the launch count of every path, and with two
+Prints the card line, then one {"kernels": [...]} JSON line (K1, the
+inflate kernel and the record scan, each with the launch count of every
+path, and with two
 or more cards phase 16's wall seconds under "multi_card_wall_s"), then the {"ok": true, "device":
 {...}} JSON line last.
 """
@@ -187,8 +202,11 @@ KERNEL_OPS_PER_EVENT = sum((
 ))
 
 
-# the inflate kernel's launches of each path driven, by drive()'s label
+# the inflate kernel's launches of each path driven, by drive()'s label,
+# the record scan's, and the host's stats_scan calls
 INFLATE_LAUNCHES = {}
+SCAN_LAUNCHES = {}
+HOST_SCANS = {}
 # the adversarial BGZF streams of phase 22: (zlib level, strategy)
 INFLATE_STREAMS = [(0, 0), (1, 0), (6, 0), (9, 0), (6, 4), (6, 2), (6, 3)]
 PCIE_GEN5_X16_BYTES_PER_S = 63e9  # one direction, published
@@ -355,22 +373,35 @@ def drive(label, argv, work, dev, keep=False):
     bytes and the kernel's largest error, and (keep=True) the recorded
     launch inputs and batches."""
     import torch
+    from coverm_tpu_torch.io import native
+    from coverm_tpu_torch.ops import bam_scan as S
     from coverm_tpu_torch.ops import bgzf_inflate as B
     from coverm_tpu_torch.ops import sweep_scan as K
     launches_in, batches = [], []
     with kernel_launches(launches_in), engine_batches(batches):
         run_cli(argv, os.path.join(work, f"{label}_warm.tsv"), dev)
     n_batches = sum(1 for b in batches if b[0].size)
+    host_scans = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K.sweep_scan_launches = 0
     B.bgzf_inflate_launches = 0
+    S.bam_scan_launches = 0
     t0 = time.perf_counter()
-    tsv = run_cli(argv, os.path.join(work, f"{label}_gpu.tsv"), dev)
+    with recording(native, "stats_scan", host_scans, lambda a, k: 1):
+        tsv = run_cli(argv, os.path.join(work, f"{label}_gpu.tsv"), dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = K.sweep_scan_launches
     INFLATE_LAUNCHES[label] = B.bgzf_inflate_launches
+    SCAN_LAUNCHES[label] = S.bam_scan_launches
+    HOST_SCANS[label] = len(host_scans)
+    if SCAN_LAUNCHES[label] != INFLATE_LAUNCHES[label] or \
+            (INFLATE_LAUNCHES[label] and HOST_SCANS[label]):
+        raise SystemExit(f"{label}: the record scan launched "
+                         f"{SCAN_LAUNCHES[label]} times over "
+                         f"{INFLATE_LAUNCHES[label]} inflated segments, the "
+                         f"host's stats_scan {HOST_SCANS[label]} times")
     peak = torch.cuda.max_memory_allocated()
     if launches <= 0:
         raise SystemExit(f"{label}: the path did not launch the sweep-scan "
@@ -380,8 +411,9 @@ def drive(label, argv, work, dev, keep=False):
                          f"its warm-up {len(launches_in)} over {n_batches} "
                          "engine batches")
     log(f"[{label}] {launches} kernel launches over {n_batches} engine "
-        f"batches, {INFLATE_LAUNCHES[label]} inflate launches; "
-        f"{wall:.3f} s")
+        f"batches, {INFLATE_LAUNCHES[label]} inflate and "
+        f"{SCAN_LAUNCHES[label]} record-scan launches, the host's "
+        f"stats_scan {HOST_SCANS[label]} times; {wall:.3f} s")
     err = max(check_kernel(f"{label} launch {i}", ins)
               for i, ins in enumerate(launches_in))
     if keep:
@@ -1275,8 +1307,8 @@ def phase_inflate(bam, work, dev, card):
     from coverm_tpu_torch.flags import FlagFilter
     from coverm_tpu_torch.io import native
     from coverm_tpu_torch.io.bam import BamFormatError
-    from coverm_tpu_torch.io.fastscan import (_HEADROOM, FusedScanStream,
-                                              plan_segments,
+    from coverm_tpu_torch.io.fastscan import (_CARD_HEADROOM,
+                                              FusedScanStream, plan_segments,
                                               scan_sample_fused)
     from coverm_tpu_torch.ops import bgzf_inflate as B
     from coverm_tpu_torch.ops.depth import ReferenceLayout
@@ -1351,20 +1383,22 @@ def phase_inflate(bam, work, dev, card):
     segments = plan_segments(usz, j, stream.target_bytes)
     # each segment's bytes against ct_bgzf_inflate's and the plain
     # version's on the same blocks
-    inf = B.SegmentInflater(bam, off, csz, usz, segments, _HEADROOM, dev)
+    inf = B.SegmentInflater(bam, off, csz, usz, segments, _CARD_HEADROOM,
+                            dev)
     total, payload, plain_ms = 0, 0, 0.0
     try:
         inf.start(0)
         for k, (i, e) in enumerate(segments):
             if k + 1 < len(segments):
                 inf.start(k + 1)
-            buf, lo, hi = inf.take(k)
+            slot, lo, hi = inf.take(k)
+            got = slot[lo:hi].cpu().numpy()
+            del slot
             want = native.bgzf_inflate_blocks(mm, off[i:e], csz[i:e],
                                               usz[i:e])
             plain, ms = plain_inflate(mm, off[i:e], csz[i:e], usz[i:e])
             plain_ms += ms
-            seg_err = max(byte_err(buf[lo:hi], want),
-                          byte_err(buf[lo:hi], plain))
+            seg_err = max(byte_err(got, want), byte_err(got, plain))
             if seg_err:
                 raise SystemExit(f"inflate kernel differs from ct_bgzf_"
                                  f"inflate or its plain version on segment "
@@ -1410,6 +1444,179 @@ def phase_inflate(bam, work, dev, card):
             "segments": len(segments), "pinned_bytes": inf.pinned_bytes,
             "d2h_256mib_ms": d2h_ms,
             "d2h_gb_per_s": (256 << 20) / d2h_ms / 1e6}
+
+
+def scan_outcome(sc, n_ref):
+    """A record scan's outcome as the card route adds it (the CPU tests'
+    tests/test_torch_bam_scan.outcome_scan)."""
+    from test_torch_bam_scan import outcome_scan
+    return outcome_scan(sc, n_ref)
+
+
+def scan_same(label, got, want):
+    """Raise unless two scan outcomes are equal, field by field (the
+    float64 sums bit for bit); returns the largest absolute difference of
+    their blocks (0)."""
+    from test_torch_bam_scan import assert_same
+    try:
+        assert_same(got, want)
+    except AssertionError as e:
+        raise SystemExit(f"record scan: {label} differs: {e}") from None
+    return 0
+
+
+def scan_err(a, b):
+    """The largest absolute difference of two record scans' blocks and
+    runs (the integer words, and the float64 sums as values); 2**31 when
+    their lengths differ."""
+    pairs = [(a.btid, b.btid), (a.bstart, b.bstart), (a.bend, b.bend),
+             (a.runs[:, :7], b.runs[:, :7])]
+    if any(x.shape != y.shape for x, y in pairs) or \
+            a.runs.shape != b.runs.shape:
+        return float(1 << 31)
+    sums = [np.ascontiguousarray(r[:, 7:]).view(np.float64)
+            for r in (a.runs, b.runs)]
+    return float(max([int(np.abs(x.astype(np.int64) - y).max(initial=0))
+                      for x, y in pairs]
+                     + [float(np.abs(sums[0] - sums[1]).max(initial=0.0))]))
+
+
+def phase_scan(bam, metabat_bam, dev, card):
+    """Phase 23: the record scan's kernels against the host's stats_scan
+    and their plain version, on the CPU tests' adversarial streams, on
+    phase 4's BAM segment by segment as the main path hands them over (the
+    inflate's card slot, the carry before it) and on phase 17's 32 MiB
+    metabat segments under its filter. Returns the kernels-line entry's
+    measured numbers."""
+    import torch
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    import test_torch_bam_scan as T
+    from coverm_tpu_torch.flags import FlagFilter
+    from coverm_tpu_torch.io.fastscan import (_CARD_HEADROOM,
+                                              FusedScanStream, plan_segments)
+    from coverm_tpu_torch.ops import bam_scan as S
+    from coverm_tpu_torch.ops import bgzf_inflate as B
+    from coverm_tpu_torch.readfilter import FilterParams
+
+    # the adversarial streams, unfiltered and under metabat's filter
+    rf_metabat = FilterParams(min_percent_identity_single=0.97001)
+    n_streams = 0
+    err = 0.0  # the kernels against the plain version
+    for name in sorted(T.STREAMS):
+        data = T.STREAMS[name]()
+        for rf in (None, rf_metabat):
+            want = T.outcome_host(data, 0, data.size, T.N_REF, rf)
+            sc = S.scan_segment(torch.from_numpy(data).to(dev), 0, data.size,
+                                T.N_REF, T.SKIP, T.REQ, rf)
+            plain = S.bam_scan_reference(torch.from_numpy(data), 0,
+                                         data.size, T.N_REF, T.SKIP, T.REQ,
+                                         rf)
+            scan_same(f"{name} (kernels)", scan_outcome(sc, T.N_REF), want)
+            scan_same(f"{name} (plain)", scan_outcome(plain, T.N_REF), want)
+            err = max(err, scan_err(sc, plain))
+            if not np.array_equal(sc.stitch[:4], plain.stitch[:4]):
+                raise SystemExit(f"record scan: {name}'s stitch differs from "
+                                 "the plain version's")
+            n_streams += 1
+    log(f"[scan] kernels equal ct_stats_scan and the plain version on "
+        f"{n_streams} adversarial streams and filters")
+
+    def segments_of(path, seg_bytes, rf, plain):
+        """Each segment of `path` through the kernels (timed), the host
+        scan and (plain) the plain version, as card_blocks hands them
+        over."""
+        nonlocal err
+        stream = FusedScanStream(path, seg_bytes)
+        header = stream.open()
+        mm, off, csz, usz, carry, j = stream._plan
+        segments = plan_segments(usz, j, stream.target_bytes)
+        skip, req = (FlagFilter(include_improper_pairs=True,
+                                include_supplementary=True,
+                                include_secondary=True) if rf is not None
+                     else FlagFilter()).masks()
+        inf = B.SegmentInflater(path, off, csz, usz, segments,
+                                _CARD_HEADROOM, dev)
+        rec = {"ms": 0.0, "step_ms": {}, "plain_ms": 0.0, "bytes": 0,
+               "read": 0, "written": 0, "blocks": 0, "records": 0,
+               "walked": 0, "segments": 0}
+        carry = torch.from_numpy(np.ascontiguousarray(carry)).to(dev) \
+            if carry is not None and len(carry) else None
+        try:
+            inf.start(0)
+            for k in range(len(segments)):
+                if k + 1 < len(segments):
+                    inf.start(k + 1)
+                slot, lo, hi = inf.take(k, carry)
+                torch.cuda.synchronize()
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                sc = S.scan_segment(slot, lo, hi, header.n_ref, skip, req,
+                                    rf, timing=True)
+                b.record()
+                b.synchronize()
+                rec["ms"] += a.elapsed_time(b)
+                for key, v in sc.timing.items():
+                    rec["step_ms"][key] = rec["step_ms"].get(key, 0.0) + v
+                host = slot.cpu().numpy()
+                want = T.outcome_host(host, lo, hi, header.n_ref, rf)
+                scan_same(f"{path} segment {k}",
+                          scan_outcome(sc, header.n_ref), want)
+                if plain:
+                    t0 = time.perf_counter()
+                    p = S.bam_scan_reference(torch.from_numpy(host), lo, hi,
+                                             header.n_ref, skip, req, rf)
+                    rec["plain_ms"] += (time.perf_counter() - t0) * 1e3
+                    scan_same(f"{path} segment {k} (plain)",
+                              scan_outcome(p, header.n_ref), want)
+                    err = max(err, scan_err(sc, p))
+                    rec["read"] += S.bytes_read(torch.from_numpy(host), lo,
+                                                hi, header.n_ref, skip, req,
+                                                rf)
+                rec["bytes"] += hi - lo
+                rec["written"] += 12 * sc.btid.size + 8 * sc.runs.size \
+                    + 8 * sc.chunks.size
+                rec["blocks"] += sc.btid.size
+                rec["records"] += sc.n_records
+                rec["walked"] += sc.regions_walked
+                rec["segments"] += 1
+                carry = sc.tail
+                del slot
+        finally:
+            inf.close()
+        return rec
+
+    main = segments_of(bam, None, None, plain=True)
+    mb = segments_of(metabat_bam, METABAT_SEGMENT_BYTES, rf_metabat,
+                     plain=False)
+    # bytes the function must move: the 32-byte sectors that hold what a
+    # scan has to read (each record's fixed fields, and the CIGAR and the
+    # aux tags up to NM of each record the flags let through; not the
+    # names, sequences and qualities), read once, and the blocks, runs and
+    # chunk words written once
+    bound_ms = (main["read"] + main["written"]) / H100_BYTES_PER_S * 1e3
+    all_ms = (main["bytes"] + main["written"]) / H100_BYTES_PER_S * 1e3
+    log(f"[scan] phase 4's BAM: {main['segments']} segments, "
+        f"{main['records']} records, {main['blocks']} blocks, equal to "
+        f"ct_stats_scan and the plain version (max_abs_err {err}); "
+        f"kernels {main['ms']:.3f} ms "
+        f"(steps {json.dumps(main['step_ms'])}), {main['walked']} regions "
+        f"walked again by the stitch; plain version {main['plain_ms']:.1f} "
+        f"ms; bound {bound_ms:.4f} ms (bytes: {main['read']} read of "
+        f"{main['bytes']} inflated, {main['written']} written; every "
+        f"inflated byte read would be {all_ms:.4f} ms)")
+    log(f"[scan] phase 17's metabat BAM: {mb['segments']} segments of "
+        f"{METABAT_SEGMENT_BYTES} bytes under the filter, equal to "
+        f"ct_stats_scan; kernels {mb['ms']:.3f} ms; {card}")
+    return {"ms": main["ms"], "step_ms": main["step_ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": bound_ms,
+            "max_abs_err": err, "bytes": main["bytes"],
+            "bytes_read": main["read"], "bytes_written": main["written"],
+            "blocks": main["blocks"], "records": main["records"],
+            "regions_walked": main["walked"], "segments": main["segments"],
+            "metabat_segments": mb["segments"], "metabat_ms": mb["ms"],
+            "streams": n_streams}
 
 
 def main():
@@ -1490,9 +1697,11 @@ def main():
         n_segments = len(plan_segments(plan._plan[3], plan._plan[5],
                                        plan.target_bytes))
         del plan
-        if INFLATE_LAUNCHES["contig"] != n_segments or n_segments == 0:
+        if INFLATE_LAUNCHES["contig"] != n_segments or n_segments == 0 \
+                or SCAN_LAUNCHES["contig"] != n_segments:
             raise SystemExit(f"contig: the inflate kernel launched "
-                             f"{INFLATE_LAUNCHES['contig']} times over "
+                             f"{INFLATE_LAUNCHES['contig']} times and the "
+                             f"record scan {SCAN_LAUNCHES['contig']} over "
                              f"{n_segments} BGZF segments")
         same_as_cpu("contig", argv, tsv_gpu, work, 32)
         want = oracle_check("contig", bam, truth, argv, dev)
@@ -1669,8 +1878,10 @@ def main():
         (launches_by_path["metabat"], mb_err, mb_fused_s,
          mb_classic_s) = phase_metabat(work, dev, card)
         phase_s["metabat"] = time.perf_counter() - t0
-        if INFLATE_LAUNCHES["metabat"] <= 0:
-            raise SystemExit("metabat: the fused route launched no inflate")
+        if INFLATE_LAUNCHES["metabat"] <= 0 or \
+                SCAN_LAUNCHES["metabat"] != INFLATE_LAUNCHES["metabat"]:
+            raise SystemExit("metabat: the fused route launched no inflate, "
+                             "or not one record scan a segment")
 
         # ---- 18. validate
         t0 = time.perf_counter()
@@ -1702,6 +1913,11 @@ def main():
         inflate = phase_inflate(bam, work, dev, card)
         design = phase_inflate_design(bam, work, dev)
         phase_s["inflate"] = time.perf_counter() - t0
+
+        # ---- 23. the record scan against the host's stats_scan
+        t0 = time.perf_counter()
+        scan = phase_scan(bam, os.path.join(work, "metabat.bam"), dev, card)
+        phase_s["scan"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"[phases] seconds: {json.dumps(phase_s)}")
@@ -1800,6 +2016,32 @@ def main():
         "design_ms": ms,
         "demo_by_kind_ms": {v: r["by_kind"] for v, r in
                             runs["demo"]["variants"].items()},
+    }, {
+        "name": "bam_scan",
+        "route": "cuda",
+        "source": "coverm_tpu_torch/csrc/bam_scan.cu",
+        "replaces": "coverm_tpu_torch/native/bamdecode.cpp:903 (the host "
+                    "run_stats_pipeline and scan_chunk_records; no TPU "
+                    "kernel scans records)",
+        "launches": SCAN_LAUNCHES["contig"],
+        "launches_by_path": dict(SCAN_LAUNCHES),
+        "host_stats_scan_calls_by_path": dict(HOST_SCANS),
+        "max_abs_err": scan["max_abs_err"],
+        "ms": scan["ms"],
+        "step_ms": scan["step_ms"],
+        "plain_ms": scan["plain_ms"],
+        "bound_ms": scan["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "library_note": "none: no PyTorch call scans BAM records",
+        "inflated_bytes": scan["bytes"],
+        "blocks": scan["blocks"],
+        "records": scan["records"],
+        "segments": scan["segments"],
+        "regions_walked": scan["regions_walked"],
+        "metabat_segments": scan["metabat_segments"],
+        "metabat_ms": scan["metabat_ms"],
+        "adversarial_streams": scan["streams"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

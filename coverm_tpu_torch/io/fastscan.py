@@ -1,23 +1,23 @@
 """Fused-native streaming scan: the production BAM-ingestion fast path.
 
-This module collapses the host side of BAM ingest into ONE native pass
-per segment (native/bamdecode.cpp ct_stats_scan behind the card's
-inflate of the segment, ops/bgzf_inflate.py; on the CPU ct_ingest_scan
-with the host's inflate): the chain walk, CIGAR walk, aux NM scan, flag
-gating, a filtered source's single-read filter, and every per-contig
-statistic the scan layer needs are computed in the C++ workers, and only
-the filtered coverage-block arrays (12 bytes/block) cross back into
-Python for device dispatch.  Columns the coverage path never reads
-(qname hashes, AS scores, per-record arrays, record byte offsets) are
-not materialised at all — the analogue of htslib's role in the
+This module collapses BAM ingest into ONE pass per segment: on a card
+the inflate kernel (ops/bgzf_inflate.py) and the record-scan kernels
+(ops/bam_scan.py) over the segment in card memory; on the CPU one native
+call (native/bamdecode.cpp ct_ingest_scan) with the host's inflate. The
+chain walk, CIGAR walk, aux NM scan, flag gating, a filtered source's
+single-read filter, and every per-contig statistic the scan layer needs
+are computed there, and only the filtered coverage-block arrays (12
+bytes/block) and the statistic runs come back for device dispatch.
+Columns the coverage path never reads (qname hashes, AS scores,
+per-record arrays, record byte offsets) are not materialised at all — the analogue of htslib's role in the
 reference (bam_generator.rs:125-129) but with the per-record loop of
 contig.rs:107-215 folded into the decoder.
 
 Streaming state between segments:
   - raw carry: the bytes of a record straddling the segment boundary
     are copied to the head of the next segment's decode buffer (by the
-    native ingest call, or into the headroom before the card's inflated
-    segment) — no full-segment concat;
+    native ingest call, or on the card into the headroom before the
+    next inflated segment) — no full-segment concat;
   - block carry: the open (trailing) contig's BLOCKS are carried instead
     of its raw record bytes, so memory for a contig that spans many
     segments is 12 bytes/block instead of ~full record size (the
@@ -36,6 +36,7 @@ import os
 import threading
 
 import numpy as np
+import torch
 
 from . import native
 from .bam import (BamFormatError, BamStreamReader, TruncatedHeaderError,
@@ -45,6 +46,10 @@ from .bam import (BamFormatError, BamStreamReader, TruncatedHeaderError,
 # straddling-record carry (np.empty leaves it unmapped until touched, so
 # the cost is only the pages the carry actually fills).
 _HEADROOM = 64 << 20
+# Room ahead of each segment's inflated bytes in its card slot for the
+# carry, which the slot's allocation holds whole: a longer carry grows
+# the slot.
+_CARD_HEADROOM = 1 << 20
 
 
 def _check_stuck_carry(carry) -> None:
@@ -463,9 +468,9 @@ def plan_segments(usz, j, target_bytes):
 
 def _card_inflater(dev):
     """The inflater of the fused ingest's BGZF segments on `dev`: on a
-    CUDA device ops.bgzf_inflate.SegmentInflater on that card, with the
-    host's stats scan behind it; None on the CPU, where one native call a
-    segment (ct_ingest_scan) inflates and scans."""
+    CUDA device ops.bgzf_inflate.SegmentInflater on that card, into card
+    slots that the card's record scan reads; None on the CPU, where one
+    native call a segment (ct_ingest_scan) inflates and scans."""
     if dev.type != "cuda":
         return None
     from ..ops.bgzf_inflate import SegmentInflater
@@ -491,12 +496,13 @@ def scan_sample_fused(header, stream: FusedScanStream, layout, flag_filter,
     call: a record that fails it counts toward the primary alignments
     and nothing else, as readfilter.filter_payload leaves it.
 
-    The BGZF plan's segments are inflated on the card when `device`
-    resolves (device.resolve_device: None is the card) to a CUDA device,
-    the first local card on a multi-device route: the hand-written kernel
-    of ops/bgzf_inflate.py, one segment ahead of the host's stats scan.
-    There is no fall-back to the host's inflate there. On the CPU the
-    host inflates and scans in one native call a segment."""
+    The BGZF plan's segments are inflated and scanned on the card when
+    `device` resolves (device.resolve_device: None is the card) to a CUDA
+    device, the first local card on a multi-device route: the hand-written
+    kernels of ops/bgzf_inflate.py and ops/bam_scan.py, the inflated bytes
+    staying in card memory and only the blocks, runs and scalars coming
+    back. There is no fall-back to the host's inflate or scan there. On
+    the CPU the host inflates and scans in one native call a segment."""
     from ..device import resolve_device
     from ..prefetch import prefetch_iter
     from ..scan import (BamSortingError, MissingNMTagError, SampleScan,
@@ -512,8 +518,15 @@ def scan_sample_fused(header, stream: FusedScanStream, layout, flag_filter,
     pendings = []
     carry = []       # [(btid, bstart, bend)] chunks of the open contig
     carry_tid = -1
+    # a card slot and its scan's buffers live only between engine calls:
+    # the card route's ingest and the engine's dispatch take turns
+    card_turn = threading.Lock()
 
     def dispatch(chunks, counts=None):
+        with card_turn:
+            _dispatch(chunks, counts)
+
+    def _dispatch(chunks, counts=None):
         if not chunks:
             return
         if len(chunks) == 1:
@@ -559,37 +572,58 @@ def scan_sample_fused(header, stream: FusedScanStream, layout, flag_filter,
         return raw_carry
 
     def card_blocks(inflater, off, csz, usz, segments, raw_carry):
-        """The plan's segments inflated by the card, one segment ahead of
-        the host's stats scan (ct_stats_scan on all its threads): the raw
-        carry goes just before each inflated segment, in its headroom, or
-        when longer than that ahead of a copy of it."""
-        if not segments:
-            return raw_carry
-        inf = inflater(stream.path, off, csz, usz, segments, _HEADROOM)
+        """The plan's segments inflated and scanned on the card, each in a
+        slot of its own that is let go before the engine's next turn: the
+        raw carry goes just before each inflated segment, and the bytes
+        left after the last one are scanned there too. The carry (the
+        bytes of the record that straddles the segments, most often a few
+        hundred) comes back with the scan's outputs and goes in again
+        with the next segment, so that nothing of the ingest is left on
+        the card while the engine runs. Returns None: no carry is left
+        for the host."""
+        inf = inflater(stream.path, off, csz, usz, segments,
+                       _CARD_HEADROOM)
+        carry = raw_carry
         try:
-            inf.start(0)
+            if segments:
+                inf.start(0)
             for s in range(len(segments)):
                 if s + 1 < len(segments):
                     inf.start(s + 1)
-                buf, lo, hi = inf.take(s)
-                n = 0 if raw_carry is None else len(raw_carry)
-                if n > lo:
-                    buf = np.concatenate([raw_carry, buf[lo:hi]])
-                    lo, hi = 0, buf.size
-                elif n:
-                    buf[lo - n:lo] = raw_carry
-                    lo -= n
-                res = native.stats_scan(buf, lo, stats, skip_mask, req_mask,
-                                        end=hi, read_filter=rf)
-                if res is None:
-                    raise RuntimeError("native fused scan unavailable")
-                bt, bs, be, seg_counts, end_off = res
-                raw_carry = buf[end_off:hi].copy()
-                _check_stuck_carry(raw_carry)
-                yield bt, bs, be, seg_counts
+                with card_turn:
+                    slot, lo, hi = inf.take(s, carry)
+                    res, carry = card_scan(inf, slot, lo, hi)
+                    del slot
+                _check_stuck_carry(carry)
+                yield res
+            if carry is not None and len(carry):
+                # trailing bytes (or a header-probe remainder when the
+                # whole file fit in the probe)
+                with card_turn:
+                    tail = torch.from_numpy(np.ascontiguousarray(
+                        carry)).to(inf.device)
+                    res, _ = card_scan(inf, tail, 0, tail.numel())
+                    del tail
+                if res[0].size:
+                    yield res
         finally:
             inf.close()
-        return raw_carry
+        return None
+
+    def card_scan(inf, slot, lo, hi):
+        """ops.bam_scan over slot[lo:hi] on the inflater's stream, its
+        outputs added into `stats` as the host scan's are: the segment's
+        (btid, bstart, bend, seg_counts) and the carry, the bytes after
+        its last complete record, in host memory."""
+        from ..ops import bam_scan
+        with inf.on_stream():
+            sc = bam_scan.scan_segment(slot, lo, hi, C, skip_mask, req_mask,
+                                       rf)
+        scalars = sc.scalars()
+        native.check_scalars(scalars)
+        seg_counts = stats.add_runs(sc.runs)
+        stats.add_segment(scalars)
+        return (sc.btid, sc.bstart, sc.bend, seg_counts), sc.tail
 
     def seg_blocks():
         """Yield (btid, bstart, bend) per segment, updating `stats`."""

@@ -390,18 +390,32 @@ class ReadFilter(ctypes.Structure):
                 ("min_identity", ctypes.c_float)]
 
 
+def read_filter_values(params):
+    """ReadFilter's fields of a readfilter.FilterParams's single-read
+    thresholds: (min_mapq, min_aligned_length, min_aligned_percent,
+    min_identity), the fractions as the float32 values numpy compares
+    against."""
+    # a min_mapq outside 0..256 keeps or drops the same records as its
+    # nearest bound (255 alone means no test)
+    return (min(max(int(params.min_mapq), 0), 256),
+            int(params.min_aligned_length_single),
+            float(np.float32(params.min_aligned_percent_single)),
+            float(np.float32(params.min_percent_identity_single)))
+
+
 def _read_filter_arg(params):
     """A pointer to the ReadFilter of a readfilter.FilterParams's
     single-read thresholds, or None (no filter)."""
     if params is None:
         return None
-    # a min_mapq outside 0..256 keeps or drops the same records as its
-    # nearest bound (255 alone means no test)
-    return ctypes.byref(ReadFilter(
-        min(max(int(params.min_mapq), 0), 256),
-        int(params.min_aligned_length_single),
-        float(np.float32(params.min_aligned_percent_single)),
-        float(np.float32(params.min_percent_identity_single))))
+    return ctypes.byref(ReadFilter(*read_filter_values(params)))
+
+
+# the fused scan's errors, as _finish_stats_handle raises them
+INFLATE_FAILED = "BGZF inflate failed inside the fused ingest"
+MALFORMED = ("Malformed BAM record {} (unknown aux tag type or truncated "
+             "record)")
+TID_OUT_OF_RANGE = "BAM record references an out-of-range tid"
 
 
 class StatsAccum:
@@ -409,7 +423,8 @@ class StatsAccum:
 
     The arrays are passed straight to ct_stats_fill, which += into them
     in deterministic chunk order, so a multi-segment streaming pass
-    accumulates without any numpy merging."""
+    accumulates without any numpy merging; add_runs adds the card's scan
+    (ops/bam_scan.py) in the same order."""
 
     def __init__(self, n_ref: int):
         self.n_ref = n_ref
@@ -428,18 +443,51 @@ class StatsAccum:
         self.last_tid = -1  # cross-segment sortedness
         self.sorted = True
 
+    def add_runs(self, runs) -> np.ndarray:
+        """Add statistic runs (int64[n, 9]: tid, reads primary, nonsupp
+        and all, NM, indels, blocks, the two identity sums as float64
+        bits) in their order, as ct_stats_fill adds a handle's chunks
+        (np.add.at adds in index order, so each float64 sum takes the
+        same additions in the same order); returns the runs' blocks by
+        contig."""
+        runs = np.asarray(runs, np.int64).reshape(-1, 9)
+        tid = runs[:, 0]
+        if ((tid < 0) | (tid >= self.n_ref)).any():
+            raise ValueError(TID_OUT_OF_RANGE)
+        for arr, col in ((self.reads_primary, 1), (self.reads_nonsupp, 2),
+                         (self.reads_all, 3), (self.nm_sum, 4),
+                         (self.indel_sum, 5)):
+            np.add.at(arr, tid, runs[:, col])
+        for arr, col in ((self.ident_primary, 7), (self.ident_nonsupp, 8)):
+            np.add.at(arr, tid, np.ascontiguousarray(runs[:, col]).view(
+                np.float64))
+        self.observed[tid] = 1
+        seg_counts = np.zeros(self.n_ref, np.int64)
+        np.add.at(seg_counts, tid, runs[:, 6])
+        return seg_counts
+
+    def add_segment(self, scalars) -> None:
+        """A segment's scalars (ct_stats_scan's: records, primary
+        alignments, NM-less records, sortedness and its first and last
+        tid) into the totals and the sortedness across segments."""
+        self.n_primary += int(scalars[3])
+        self.nm_missing += int(scalars[4])
+        self.n_records += int(scalars[0])
+        first_tid, last_tid = int(scalars[6]), int(scalars[7])
+        if not scalars[5]:
+            self.sorted = False
+        if first_tid >= 0:
+            if self.last_tid >= 0 and first_tid < self.last_tid:
+                self.sorted = False
+            self.last_tid = last_tid
+
 
 def _finish_stats_handle(lib, h, scalars, acc: StatsAccum,
                          leftover_from_buf: bool):
     """Shared epilogue for stats_scan / ingest_scan: error checks, block
     extraction, per-contig accumulation, cross-segment sortedness."""
     try:
-        if scalars[9]:
-            raise ValueError("BGZF inflate failed inside the fused ingest")
-        if scalars[8]:
-            raise ValueError(
-                f"Malformed BAM record {int(scalars[8]) - 1} "
-                "(unknown aux tag type or truncated record)")
+        check_scalars(scalars)
         n_blocks = int(scalars[2])
         btid = np.empty(n_blocks, np.int32)
         bstart = np.empty(n_blocks, np.int32)
@@ -455,7 +503,7 @@ def _finish_stats_handle(lib, h, scalars, acc: StatsAccum,
             btid.ctypes.data_as(c_i32p), bstart.ctypes.data_as(c_i32p),
             bend.ctypes.data_as(c_i32p), _i64p(seg_counts))
         if rc != 0:
-            raise ValueError("BAM record references an out-of-range tid")
+            raise ValueError(TID_OUT_OF_RANGE)
         leftover = None
         if leftover_from_buf:
             leftover = np.empty(max(int(scalars[10]), 0), np.uint8)
@@ -463,17 +511,17 @@ def _finish_stats_handle(lib, h, scalars, acc: StatsAccum,
                 lib.ct_stats_leftover(h, _u8p(leftover))
     finally:
         lib.ct_stats_free(h)
-    acc.n_primary += int(scalars[3])
-    acc.nm_missing += int(scalars[4])
-    acc.n_records += int(scalars[0])
-    first_tid, last_tid = int(scalars[6]), int(scalars[7])
-    if not scalars[5]:
-        acc.sorted = False
-    if first_tid >= 0:
-        if acc.last_tid >= 0 and first_tid < acc.last_tid:
-            acc.sorted = False
-        acc.last_tid = last_tid
+    acc.add_segment(scalars)
     return btid, bstart, bend, seg_counts, leftover
+
+
+def check_scalars(scalars) -> None:
+    """Raise the fused scan's ValueError for its scalars' inflate error
+    (scalars[9]) or first malformed record (scalars[8], its index + 1)."""
+    if scalars[9]:
+        raise ValueError(INFLATE_FAILED)
+    if scalars[8]:
+        raise ValueError(MALFORMED.format(int(scalars[8]) - 1))
 
 
 def ingest_scan(comp: np.ndarray, off, csz, usz, carry, start: int,
@@ -498,7 +546,7 @@ def ingest_scan(comp: np.ndarray, off, csz, usz, carry, start: int,
         # one worker beyond the core count fills the bubbles left by
         # the chain walker's frontier waits (measured ~10% on 2 vCPUs)
         n_threads = min((os.cpu_count() or 1) + 1, 8)
-    scalars = np.zeros(11, np.int64)
+    scalars = np.zeros(13, np.int64)
     h = lib.ct_ingest_scan(_u8p(comp), off.size, _i64p(off), _i64p(csz),
                            _i64p(usz), _u8p(carry), carry.size, start,
                            acc.n_ref, skip_mask, req_mask, n_threads,
@@ -512,11 +560,12 @@ def ingest_scan(comp: np.ndarray, off, csz, usz, carry, start: int,
 
 def stats_scan(data, start: int, acc: StatsAccum, skip_mask: int,
                req_mask: int, end: int | None = None,
-               n_threads: int = 0, read_filter=None):
+               n_threads: int = 0, read_filter=None, timings=None):
     """Fused chain-walk + stats + block extraction over the COMPLETE
     records in [start, end), accumulating per-contig statistics into
     `acc` (deterministic chunk-ordered merge in C++); `read_filter` as in
-    ingest_scan.
+    ingest_scan. `timings` (a dict) gains the chain walk's seconds
+    ("chain_s") and the chunk workers' thread seconds ("chunks_s").
 
     Returns (btid, bstart, bend, end_off) — the filtered coverage-block
     arrays in record order — or None when the native entry points are
@@ -528,12 +577,15 @@ def stats_scan(data, start: int, acc: StatsAccum, skip_mask: int,
     end = arr.size if end is None else end
     if n_threads <= 0:
         n_threads = min(os.cpu_count() or 1, 8)
-    scalars = np.zeros(11, np.int64)
+    scalars = np.zeros(13, np.int64)
     h = lib.ct_stats_scan(_u8p(arr), end, start, acc.n_ref, skip_mask,
                           req_mask, n_threads, _i64p(scalars),
                           _read_filter_arg(read_filter))
     if not h:
         return None
+    if timings is not None:
+        for key, i in (("chain_s", 11), ("chunks_s", 12)):
+            timings[key] = timings.get(key, 0.0) + scalars[i] / 1e9
     btid, bstart, bend, seg_counts, _ = _finish_stats_handle(
         lib, h, scalars, acc, leftover_from_buf=False)
     return btid, bstart, bend, seg_counts, int(scalars[1])

@@ -13,6 +13,7 @@
 // Build: g++ -O3 -march=native -shared -fPIC -o libcovermio.so bamdecode.cpp -lz -lpthread
 
 #include <atomic>
+#include <chrono>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
@@ -912,7 +913,11 @@ void run_stats_pipeline(const uint8_t* data, int64_t end, int64_t start,
   std::atomic<int64_t> published(0);   // chunks whose END is known
   std::atomic<int64_t> total_chunks(INT64_MAX);  // set when the chain ends
   std::atomic<int64_t> next_chunk(0);
+  std::atomic<int64_t> scan_ns(0);  // the chunk workers' thread time
   int64_t chain_err = 0;
+  auto now = [] { return std::chrono::steady_clock::now(); };
+  const auto t_start = now();
+  int64_t chain_ns = 0;
 
   auto chain = [&]() {
     int64_t pos = start, nrec = 0;
@@ -973,9 +978,12 @@ void run_stats_pipeline(const uint8_t* data, int64_t end, int64_t start,
     // final; published then opens the last (partial) chunk for scanning
     total_chunks.store(st->n_chunks, std::memory_order_release);
     published.store(st->n_chunks, std::memory_order_release);
+    chain_ns = std::chrono::duration_cast<std::chrono::nanoseconds>(
+                   now() - t_start).count();
   };
 
   auto scan_chunk = [&](int64_t ci) {
+    const auto t0 = now();
     int64_t count = kChunkRecs;
     // ci == total-1 is only observable after the chain's release store,
     // which orders the n_records write before this read
@@ -989,6 +997,9 @@ void run_stats_pipeline(const uint8_t* data, int64_t end, int64_t start,
       scan_chunk_records<false>(data, chunk_off[(size_t)ci], count, n_ref,
                                 skip_mask, req_mask, ReadFilter{},
                                 st->chunks[(size_t)ci]);
+    scan_ns.fetch_add(std::chrono::duration_cast<std::chrono::nanoseconds>(
+                          now() - t0).count(),
+                      std::memory_order_relaxed);
   };
 
   auto worker = [&]() {
@@ -1042,6 +1053,11 @@ void run_stats_pipeline(const uint8_t* data, int64_t end, int64_t start,
   scalars[7] = last_tid;
   scalars[8] = err;
   scalars[9] = inf ? inf->err.load() : 0;
+  // scalars[10] is the caller's; the chain walk's wall time from the
+  // call's start (it chases the inflate on the ingest route) and the
+  // chunk workers' thread time, nanoseconds
+  scalars[11] = chain_ns;
+  scalars[12] = scan_ns.load();
 }
 
 }  // namespace
@@ -1052,7 +1068,8 @@ extern "C" {
 // pre-decoded buffer.  Returns an opaque handle (free with
 // ct_stats_free) or null on alloc failure.  scalars[0..9]: n_records,
 // end_off, n_blocks, n_primary, nm_missing, sorted(1 ok), first_tid,
-// last_tid, err(record idx+1), inflate_err(always 0 here).  `rf` (null:
+// last_tid, err(record idx+1), inflate_err(always 0 here); [11] the
+// chain walk's nanoseconds, [12] the chunk workers' (thread time).  `rf` (null:
 // none) is the single-read filter a passing mapped record must pass too.
 void* ct_stats_scan(const uint8_t* data, int64_t end, int64_t start,
                     int32_t n_ref, int32_t skip_mask, int32_t req_mask,

@@ -2,24 +2,28 @@
 
 The kernel (csrc/bgzf_inflate.cu) decodes a batch of independent BGZF
 blocks, one CTA a block (a decoder warp and a copy warp), straight from
-pinned host memory into pinned host memory; it is compiled with nvcc
-for sm_90a into a shared library with a plain C interface on first use
-(ops/cuda_build.py, with the sweep-scan kernel) and bound with ctypes.
+pinned host memory into card memory (or pinned host memory); it is
+compiled with nvcc for sm_90a into a shared library with a plain C
+interface on first use (ops/cuda_build.py, with the port's other
+kernels) and bound with ctypes.
 It takes over the inflate of the fused BAM ingest from the host
 (native/bamdecode.cpp, ct_ingest_scan); the JAX package has no kernel
 for it.
 
 `bgzf_inflate(comp, table, out, status, device)` inflates the blocks that
-`block_table` describes. For a CUDA device the four tensors are pinned
-host tensors, which the kernel reaches through their mapped addresses,
-and the launch is asynchronous on the device's current stream; for the
-CPU the plain version, `bgzf_inflate_reference`, inflates each block
-with Python's zlib. `SegmentInflater` runs the fused ingest's segments
-through it, one segment ahead of the host's record scan.
+`block_table` describes. For a CUDA device comp, table and status are
+pinned host tensors, which the kernel reaches through their mapped
+addresses, and out is pinned too or in the card's own memory; the launch
+is asynchronous on the device's current stream. For the CPU the plain
+version, `bgzf_inflate_reference`, inflates each block with Python's
+zlib. `SegmentInflater` runs the fused ingest's segments through it, each
+into a slot in card memory where the record scan (ops/bam_scan.py) reads
+it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import threading
@@ -83,7 +87,7 @@ def block_table(comp: np.ndarray, rel_off, csz, usz) -> np.ndarray:
     return table
 
 
-def _check(comp, table, out, status):
+def _check(comp, table, out, status, device):
     if comp.dtype != torch.uint8 or out.dtype != torch.uint8 \
             or comp.dim() != 1 or out.dim() != 1:
         raise ValueError("bgzf_inflate takes uint8[] comp and out")
@@ -93,8 +97,17 @@ def _check(comp, table, out, status):
     if status.dtype != torch.int32 or status.shape != (table.shape[0],):
         raise ValueError("bgzf_inflate takes an int32[n] status")
     for t in (comp, table, out, status):
-        if not t.is_contiguous() or t.device.type != "cpu":
-            raise ValueError("bgzf_inflate takes contiguous host tensors")
+        if not t.is_contiguous():
+            raise ValueError("bgzf_inflate takes contiguous tensors")
+    for t in (comp, table, status):
+        if t.device.type != "cpu":
+            raise ValueError("bgzf_inflate takes comp, table and status in "
+                             "host memory")
+    if out.device.type != "cpu" and (
+            out.device.type != device.type or device.index not in (
+                None, out.device.index)):
+        raise ValueError("bgzf_inflate takes out in host memory or on the "
+                         "card that inflates")
 
 
 def bgzf_inflate(comp, table, out, status, device):
@@ -102,17 +115,19 @@ def bgzf_inflate(comp, table, out, status, device):
     `out`, a status a block into `status` (0: inflated).
 
     On a CUDA `device` the kernel does it, asynchronously on the device's
-    current stream: the tensors must be pinned, and comp 16-byte aligned
-    and readable PAD bytes past its last payload. On the CPU the plain
-    version does it."""
+    current stream: comp, table and status must be pinned host tensors,
+    comp 16-byte aligned and readable PAD bytes past its last payload, and
+    out pinned too or on that card. On the CPU the plain version does
+    it."""
     global bgzf_inflate_launches
     device = torch.device(device)
-    _check(comp, table, out, status)
+    _check(comp, table, out, status, device)
     if device.type == "cpu":
         return bgzf_inflate_reference(comp, table, out, status)
     if device.type != "cuda":
         raise ValueError(f"bgzf_inflate: unsupported device {device}")
-    if not all(t.is_pinned() for t in (comp, table, out, status)):
+    if not all(t.is_pinned() for t in (comp, table, status)) or \
+            (out.device.type == "cpu" and not out.is_pinned()):
         raise ValueError("bgzf_inflate on the card takes pinned tensors")
     if comp.data_ptr() % 16:
         raise ValueError("bgzf_inflate: comp must be 16-byte aligned")
@@ -180,23 +195,26 @@ def bgzf_inflate_reference(comp, table, out, status):
 
 
 class SegmentInflater:
-    """Inflates the BGZF segments of a file into host buffers on `device`,
-    a segment ahead of their reader.
+    """Inflates the BGZF segments of a file on `device`, a segment ahead of
+    their reader.
 
     `segments` are the (i, k) block ranges of the fused ingest's plan;
     `off`, `csz`, `usz` its block table. start(s) has a worker thread read
-    segment s's compressed bytes from the file into a staging buffer and
-    start their inflate into a free buffer at offset `at`, so the reading
-    overlaps the caller's work too; take(s) waits for it and returns
-    (buffer, at, at + inflated bytes), raising ValueError when a block
-    failed. A buffer is reused by segment s + N_BUFS, so segment s is
-    taken, and read, before s + N_BUFS starts. Each buffer is allocated
-    when its first segment starts. On a CUDA device the kernel inflates,
-    on a stream of its own, into pinned buffers; on the CPU the plain
-    version inflates.
+    segment s's compressed bytes from the file into a staging buffer (in
+    pinned host memory on a card), so the reading overlaps the caller's
+    work. A staging buffer is reused by segment s + N_BUFS, so segment s is
+    taken before s + N_BUFS starts. Each buffer is allocated when its first
+    segment starts.
+
+    take(s, carry) inflates segment s into a slot of its own on the
+    device, just after `carry` (bytes in host memory, or None), at offset
+    `at` or later when the carry is longer, and returns (slot, the carry's
+    start, the segment's end): the caller's to scan and let go. It raises
+    ValueError when a block failed. On a CUDA device the kernel inflates,
+    on a stream of its own (`stream`); on the CPU the plain version.
 
     It keeps its own timings: `kernel_ms` a segment taken (CUDA events),
-    `stage_s` the worker's seconds reading and launching the segments,
+    `stage_s` the worker's seconds reading the segments,
     `wait_s` the caller's seconds blocked in take()."""
 
     def __init__(self, path, off, csz, usz, segments, at, device):
@@ -213,12 +231,11 @@ class SegmentInflater:
         self._caps = (
             max((int(ends[k - 1] - off[i]) for i, k in self.segments),
                 default=0) + PAD,
-            self.at + max(self._out_bytes, default=0),
             max((k - i for i, k in self.segments), default=0))
-        self._bufs = {}      # slot -> (comp, out, table, status)
+        self._bufs = {}      # slot -> (comp, table, status)
         self.tensor_bytes = []
         self.pinned_bytes = 0
-        self._stream = torch.cuda.Stream(self.device) if self._cuda else None
+        self.stream = torch.cuda.Stream(self.device) if self._cuda else None
         self._pending = {}   # slot -> the worker's future of _start
         self._worker = ThreadPoolExecutor(1)
         self.kernel_ms = []  # per segment taken, by CUDA events
@@ -229,23 +246,23 @@ class SegmentInflater:
     def _buffers(self, slot):
         bufs = self._bufs.get(slot)
         if bufs is None:
-            comp_cap, out_cap, blocks = self._caps
+            comp_cap, blocks = self._caps
 
             def host(n, dtype):
                 return torch.empty(n, dtype=dtype, pin_memory=self._cuda)
             bufs = self._bufs[slot] = (
-                host(comp_cap, torch.uint8), host(out_cap, torch.uint8),
-                host((blocks, 4), torch.int64), host(blocks, torch.int32))
+                host(comp_cap, torch.uint8), host((blocks, 4), torch.int64),
+                host(blocks, torch.int32))
             self.tensor_bytes += [t.nbytes for t in bufs]
             if self._cuda:
                 self.pinned_bytes += sum(t.nbytes for t in bufs)
         return bufs
 
     def _start(self, s):
-        """On the worker: stage segment s and launch its inflate; returns
-        the kernel's (begin, end) events, None on the CPU."""
+        """On the worker: stage segment s's compressed bytes and block
+        table."""
         t0 = time.perf_counter()
-        comp, out, table, status = self._buffers(s % N_BUFS)
+        comp, table, _status = self._buffers(s % N_BUFS)
         i, k = self.segments[s]
         lo, hi = int(self.off[i]), int(self.off[k - 1] + self.csz[k - 1])
         view = memoryview(comp.numpy())[:hi - lo]
@@ -257,20 +274,18 @@ class SegmentInflater:
             got += n
         table[:k - i].numpy()[:] = block_table(
             comp.numpy(), self.off[i:k] - lo, self.csz[i:k], self.usz[i:k])
-        # out runs to the buffer's end: never empty, even for a segment of
-        # empty blocks
-        args = (comp, table[:k - i], out[self.at:], status[:k - i])
-        ev = None
-        if self._stream is None:
-            bgzf_inflate(*args, self.device)
-        else:
-            ev = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-            with torch.cuda.stream(self._stream):
-                ev[0].record()
-                bgzf_inflate(*args, self.device)
-                ev[1].record()
         self.stage_s += time.perf_counter() - t0
+
+    def _launch(self, comp, table, out, status):
+        if self.stream is None:
+            bgzf_inflate(comp, table, out, status, self.device)
+            return None
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        with torch.cuda.stream(self.stream):
+            ev[0].record()
+            bgzf_inflate(comp, table, out, status, self.device)
+            ev[1].record()
         return ev
 
     def start(self, s):
@@ -279,19 +294,36 @@ class SegmentInflater:
             raise RuntimeError(f"segment {s}'s buffer is still in use")
         self._pending[slot] = self._worker.submit(self._start, s)
 
-    def take(self, s):
+    def take(self, s, carry=None):
         slot = s % N_BUFS
         t0 = time.perf_counter()
-        ev = self._pending.pop(slot).result()
+        self._pending.pop(slot).result()
+        i, k = self.segments[s]
+        comp, table, status = self._bufs[slot]
+        n = 0 if carry is None else len(carry)
+        at = max(self.at, n)
+        size = self._out_bytes[s]
+        with self.on_stream():
+            # never empty, even for a segment of empty blocks
+            dest = torch.empty(at + max(size, 1), dtype=torch.uint8,
+                               device=self.device)
+            if n:
+                dest[at - n:at].copy_(torch.as_tensor(carry),
+                                      non_blocking=True)
+        ev = self._launch(comp, table[:k - i], dest[at:], status[:k - i])
         if ev is not None:
             ev[1].synchronize()
             self.kernel_ms.append(ev[0].elapsed_time(ev[1]))
         self.wait_s += time.perf_counter() - t0
-        i, k = self.segments[s]
-        _comp, out, _table, status = self._bufs[slot]
         if status[:k - i].numpy().any():
             raise ValueError(FAILED)
-        return out.numpy(), self.at, self.at + self._out_bytes[s]
+        return dest, at - n, at + size
+
+    def on_stream(self):
+        """The inflater's stream as the current one (nothing on the CPU)."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
 
     def close(self):
         """Wait for the worker and the card, then let the buffers and the
@@ -300,8 +332,8 @@ class SegmentInflater:
             fut.exception()  # waits; a segment never taken raises nothing
         self._pending.clear()
         self._worker.shutdown()
-        if self._stream is not None:
-            self._stream.synchronize()
+        if self.stream is not None:
+            self.stream.synchronize()
         if self._fd >= 0:
             os.close(self._fd)
             self._fd = -1

@@ -2,7 +2,7 @@
 
 Each source under csrc/ is compiled with nvcc for sm_90a into a shared
 library with a plain C interface, loaded with ctypes by its wrapper
-(ops/sweep_scan.py, ops/bgzf_inflate.py). A library is content-addressed
+(ops/sweep_scan.py, ops/bgzf_inflate.py, ops/bam_scan.py). A library is content-addressed
 by its source and the flags, written under a temporary name and moved
 into place, and the compiler's `-Xptxas -v` report (registers, spills)
 is kept beside it as `<library>.log`. `build_all` builds every kernel,
@@ -21,9 +21,17 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = [os.path.join(_PKG, "csrc", name)
-           for name in ("sweep_scan.cu", "bgzf_inflate.cu")]
+           for name in ("sweep_scan.cu", "bgzf_inflate.cu", "bam_scan.cu")]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# the record scan's float32 filter quotients must round as numpy's do: no
+# fast math, IEEE division, denormals kept, no fused multiply-adds
+EXTRA_FLAGS = {SOURCES[2]: ["-prec-div=true", "-ftz=false", "-fmad=false"]}
+
+
+def flags(source: str) -> list[str]:
+    """nvcc's flags for `source`."""
+    return NVCC_FLAGS + EXTRA_FLAGS.get(source, [])
 
 
 def _nvcc() -> str:
@@ -41,7 +49,7 @@ def _nvcc() -> str:
 def library_path(source: str) -> str:
     """Build output for the current source (content-addressed)."""
     with open(source, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha1(f.read() + " ".join(flags(source)).encode())
     stem = os.path.splitext(os.path.basename(source))[0]
     return os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:12]}.so")
 
@@ -53,7 +61,7 @@ def build(source: str) -> str:
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, source],
+    proc = subprocess.run([_nvcc(), *flags(source), "-o", tmp, source],
                           capture_output=True, text=True)
     with open(out + ".log", "w") as f:
         f.write(proc.stdout + proc.stderr)

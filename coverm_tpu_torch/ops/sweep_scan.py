@@ -67,9 +67,9 @@ _count_lock = threading.Lock()
 
 
 def build() -> str:
-    """Compile the port's kernels where their libraries are missing
-    (cuda_build.build_all); returns this kernel's library path."""
-    return cuda_build.build_all()[SOURCE]
+    """Compile this kernel's library where it is missing; returns its
+    path (cuda_build.build_all builds every kernel)."""
+    return cuda_build.build(SOURCE)
 
 
 def _load():

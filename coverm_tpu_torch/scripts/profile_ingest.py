@@ -20,14 +20,27 @@ Times, on one BAM, each stage as the best of --reps passes:
                       its plain version on the CPU): the wall seconds, the
                       kernel's milliseconds a segment (CUDA events), its
                       launches and the pinned bytes it holds
+  host scan split   - the card route as it ran before the records were
+                      scanned on the card: each inflated segment copied to
+                      a pinned host buffer, then the host's
+                      native.stats_scan, timed apart: the wait for the
+                      inflate, the copy, the carry's placement before the
+                      segment and its copy after, the scan at its threads,
+                      and inside the scan (its own clocks) the chain walk's
+                      wall seconds and the chunk workers' thread seconds
   e2e, stubbed      - io/fastscan.scan_sample_fused on the device with the
                       depth engine stubbed: bench_torch/run.py's ingest_s;
-                      on a CUDA device the card inflates, and its
+                      on a CUDA device the card inflates and scans, and its
                       SegmentInflater's own timings split the pass: the
-                      worker's seconds staging and launching segments, the
-                      scan's seconds waiting for the card, the kernel's ms
+                      worker's seconds staging segments, the seconds
+                      waiting for the inflate, the inflate kernel's ms, and
+                      the record scan's ms by step (CUDA events: speculate,
+                      stitch, analyse, emit and fold, the outputs' d2h),
+                      with the regions the stitch walked again
   e2e               - the same with the sweep engine on the device; the
-                      sweep-scan and inflate kernels' launches are counted
+                      sweep-scan and inflate kernels' launches are counted,
+                      and on a card the peak device bytes allocated inside
+                      the engine's calls and outside them (the ingest)
 
 The inflate to bookkeep stages go segment by segment, over the
 FusedScanStream's own segments (COVERM_TPU_SEGMENT_BYTES, 256 MiB by
@@ -98,7 +111,10 @@ STAGES = [("bgzf_scan", "bgzf scan"), ("inflate", "inflate"),
           ("stream", "stream (inflate+parse)"),
           ("fused", "fused one-call ingest"),
           ("card_inflate", "card inflate alone"),
+          ("host_scan_split", "host scan, split"),
           ("e2e_stub", "e2e, depth stubbed"), ("e2e", "e2e, sweep engine")]
+HOST_SPLIT = ("wait", "d2h", "carry", "stats_scan", "chain_walk",
+              "chunk_workers")
 SEGMENTED = ("inflate", "phase1", "full_parse", "stats_scan", "bookkeep")
 PROLOGUE = ("prep_segments", "choose_payload", "encode_start_deltas",
             "_pack_u8")
@@ -291,14 +307,14 @@ def card_inflate_pass(path, device):
     """SegmentInflater over the plan's segments, each started one ahead
     of the one taken: (bytes, segments, kernel ms a segment, launches,
     pinned bytes, pinned bytes as allocated)."""
-    from ..io.fastscan import _HEADROOM, plan_segments
+    from ..io.fastscan import _CARD_HEADROOM, plan_segments
     from ..ops import bgzf_inflate as B
 
     stream, _ = _open(path)
     _mm, off, csz, usz, _carry, j = stream._plan
     segments = plan_segments(usz, j, stream.target_bytes)
     before = B.bgzf_inflate_launches
-    inf = B.SegmentInflater(path, off, csz, usz, segments, _HEADROOM,
+    inf = B.SegmentInflater(path, off, csz, usz, segments, _CARD_HEADROOM,
                             device)
     try:
         total = 0
@@ -315,6 +331,73 @@ def card_inflate_pass(path, device):
         if inf.pinned_bytes else 0
     return (total, len(segments), inf.kernel_ms,
             B.bgzf_inflate_launches - before, inf.pinned_bytes, allocated)
+
+
+def host_scan_split_pass(path, device):
+    """The card route as it was before its scan moved onto the card: each
+    segment inflated by SegmentInflater, its bytes copied to a pinned host
+    buffer behind 64 MiB of headroom (as the kernel wrote them there), the
+    carry put before them, native.stats_scan at its threads, the carry
+    copied out. Returns (seconds by HOST_SPLIT stage, records, blocks);
+    chain_walk and chunk_workers are the scan's own clocks (thread seconds
+    for the workers)."""
+    from ..flags import FlagFilter
+    from ..io import native
+    from ..io.fastscan import _check_stuck_carry, plan_segments
+    from ..ops import bgzf_inflate as B
+
+    stream, header = _open(path)
+    _mm, off, csz, usz, raw_carry, j = stream._plan
+    segments = plan_segments(usz, j, stream.target_bytes)
+    skip, req = FlagFilter().masks()
+    stats = native.StatsAccum(header.n_ref)
+    secs = dict.fromkeys(HOST_SPLIT, 0.0)
+    inner = {}
+    blocks = 0
+    at = 64 << 20
+    host = torch.empty(at + max(int(usz[i:k].sum()) for i, k in segments)
+                       if segments else 0, dtype=torch.uint8,
+                       pin_memory=device.type == "cuda")
+    buf = host.numpy()
+    inf = B.SegmentInflater(path, off, csz, usz, segments, 0, device)
+    try:
+        if segments:
+            inf.start(0)
+        for s in range(len(segments)):
+            if s + 1 < len(segments):
+                inf.start(s + 1)
+            t0 = time.perf_counter()
+            slot, lo, hi = inf.take(s)
+            t1 = time.perf_counter()
+            host[at:at + hi - lo].copy_(slot[lo:hi])
+            lo, hi = at, at + hi - lo
+            del slot
+            t2 = time.perf_counter()
+            seg = buf
+            n = 0 if raw_carry is None else len(raw_carry)
+            if n > lo:
+                seg = np.concatenate([raw_carry, buf[lo:hi]])
+                lo, hi = 0, seg.size
+            elif n:
+                seg[lo - n:lo] = raw_carry
+                lo -= n
+            t3 = time.perf_counter()
+            bt, _bs, _be, _counts, end = native.stats_scan(
+                seg, lo, stats, skip, req, end=hi, timings=inner)
+            t4 = time.perf_counter()
+            raw_carry = seg[end:hi].copy()
+            _check_stuck_carry(raw_carry)
+            t5 = time.perf_counter()
+            secs["wait"] += t1 - t0
+            secs["d2h"] += t2 - t1
+            secs["carry"] += (t3 - t2) + (t5 - t4)
+            secs["stats_scan"] += t4 - t3
+            blocks += bt.size
+    finally:
+        inf.close()
+    secs["chain_walk"] = inner.get("chain_s", 0.0)
+    secs["chunk_workers"] = inner.get("chunks_s", 0.0)
+    return secs, stats.n_records, blocks
 
 
 def e2e_pass(path, device, stub=False, cram=False):
@@ -359,6 +442,57 @@ def inflaters_made():
         yield made
     finally:
         B.SegmentInflater = cls
+
+
+@contextlib.contextmanager
+def scans_made():
+    """Record each ops.bam_scan.scan_segment call that io/fastscan's card
+    route makes while the block runs, timed by step (CUDA events on a
+    card, none on the CPU): {"records", "regions_walked", "ms"} a call."""
+    from ..ops import bam_scan
+    made, orig = [], bam_scan.scan_segment
+
+    def timed(*args, **kwargs):
+        sc = orig(*args, **{**kwargs, "timing": True})
+        made.append({"records": sc.n_records,
+                     "regions_walked": sc.regions_walked, "ms": sc.timing})
+        return sc
+    bam_scan.scan_segment = timed
+    try:
+        yield made
+    finally:
+        bam_scan.scan_segment = orig
+
+
+@contextlib.contextmanager
+def engine_memory(peaks, device):
+    """On a card, the peak device bytes allocated inside each call of
+    ops.sweep.compute_depth_stats_sweep (peaks["engine"]) and between
+    them (peaks["outside"], the ingest's), while the block runs."""
+    if device.type != "cuda":
+        yield
+        return
+    from ..ops import sweep as S
+    orig = S.compute_depth_stats_sweep
+
+    def engine(*args, **kwargs):
+        peaks["outside"] = max(peaks["outside"],
+                               torch.cuda.max_memory_allocated(device))
+        torch.cuda.reset_peak_memory_stats(device)
+        try:
+            return orig(*args, **kwargs)
+        finally:
+            peaks["engine"] = max(peaks["engine"],
+                                  torch.cuda.max_memory_allocated(device))
+            torch.cuda.reset_peak_memory_stats(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    S.compute_depth_stats_sweep = engine
+    try:
+        yield
+    finally:
+        S.compute_depth_stats_sweep = orig
+        peaks["outside"] = max(peaks["outside"],
+                               torch.cuda.max_memory_allocated(device))
 
 
 @contextlib.contextmanager
@@ -681,12 +815,17 @@ def profile(path, reps=3, device=None, out=print):
         ms = sum(kernel_ms)
         stages["card_inflate"].update(
             kernel_ms_total=ms, kernel_gb_per_s=total / ms / 1e6)
-    walls = []
+    hs = best("host_scan_split", lambda: host_scan_split_pass(path, dev))
+    stages["host_scan_split"].update(records=hs[1], blocks=hs[2],
+                                     stage_s=hs[0], device=str(dev))
+    walls, scans = [], []
 
     def stub_pass():
-        t0 = time.perf_counter()
-        got = e2e_pass(path, dev, stub=True)
-        walls.append(time.perf_counter() - t0)
+        with scans_made() as made_scans:
+            t0 = time.perf_counter()
+            got = e2e_pass(path, dev, stub=True)
+            walls.append(time.perf_counter() - t0)
+        scans.append(made_scans)
         return got
     with inflaters_made() as made:
         rec, blk = best("e2e_stub", stub_pass)
@@ -694,16 +833,28 @@ def profile(path, reps=3, device=None, out=print):
                               route="card" if dev.type == "cuda" else "host")
     if made and len(made) == len(walls):
         # the card route's split, of the pass whose wall is kept
-        fastest = made[int(np.argmin(walls))]
+        fastest = int(np.argmin(walls))
+        inf, fast_scans = made[fastest], scans[fastest]
+        scan_ms = {}
+        for sc in fast_scans:
+            for k, v in (sc["ms"] or {}).items():
+                scan_ms[k] = scan_ms.get(k, 0.0) + v
         stages["e2e_stub"].update(
-            card_stage_s=fastest.stage_s, card_wait_s=fastest.wait_s,
-            kernel_ms_total=sum(fastest.kernel_ms))
+            card_stage_s=inf.stage_s, card_wait_s=inf.wait_s,
+            kernel_ms_total=sum(inf.kernel_ms),
+            scan_segments=len(fast_scans),
+            scan_records=sum(sc["records"] for sc in fast_scans),
+            scan_regions_walked=sum(sc["regions_walked"]
+                                    for sc in fast_scans),
+            scan_ms=scan_ms)
 
     per_rep, launches, inflates = [], set(), set()
 
+    peaks = {"engine": 0, "outside": 0}
+
     def e2e():
         totals, bufs = dict.fromkeys(PROLOGUE, 0.0), []
-        with prologue_timers(totals, bufs):
+        with prologue_timers(totals, bufs), engine_memory(peaks, dev):
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             K.sweep_scan_launches = 0
@@ -729,6 +880,9 @@ def profile(path, reps=3, device=None, out=print):
                      "k1_launches": launches.pop(),
                      "inflate_launches": inflates.pop(), "device": str(dev),
                      "peak_rss_bytes": rss.peak}
+    if dev.type == "cuda":
+        stages["e2e"].update(device_peak_engine_bytes=peaks["engine"],
+                             device_peak_outside_engine_bytes=peaks["outside"])
     prologue = {name: min(t[name] for _, t in per_rep)
                 for name in (*PROLOGUE, "upload")}
     prologue["total"] = sum(prologue.values())

@@ -673,11 +673,11 @@ def test_card_route_under_metabat_filter(bams, card_route, monkeypatch,
 
 def test_card_route_carry_longer_than_headroom(bams, card_route,
                                                monkeypatch):
-    """A 16-byte headroom: every straddling record's carry is longer, so
-    the segment is joined to it by a copy."""
+    """A 16-byte headroom in the card slot: every straddling record's
+    carry is longer, so the slot grows to hold it."""
     monkeypatch.setenv("COVERM_TPU_SEGMENT_BYTES", str(SEG))
     want = host_outcome(bams["mixed"], monkeypatch)
-    monkeypatch.setattr(fastscan, "_HEADROOM", 16)
+    monkeypatch.setattr(fastscan, "_CARD_HEADROOM", 16)
     got = outcome(bams["mixed"])
     assert_same(got, want)
 

@@ -193,14 +193,49 @@ def test_profile_ingest_counts_equal_the_jax_package(bams, segment_bytes):
         assert st[key]["records"] == records, key
     assert st["full_parse"]["blocks"] == blocks
     assert fused_records == records
-    for key in ("stats_scan", "fused", "e2e_stub"):
+    for key in ("stats_scan", "fused", "e2e_stub", "host_scan_split"):
         assert st[key]["blocks"] == fused_blocks, key
+    # the card route's host scan as it ran before its scan moved onto the
+    # card, timed apart (the scan's own clocks inside stats_scan)
+    split = st["host_scan_split"]
+    assert split["records"] == records
+    assert set(split["stage_s"]) == {"wait", "d2h", "carry", "stats_scan",
+                                     "chain_walk", "chunk_workers"}
+    assert split["stage_s"]["stats_scan"] > 0
+    assert 0 < split["stage_s"]["chain_walk"]
+    assert 0 < split["stage_s"]["chunk_workers"]
     assert st["e2e"]["mapped_reads"] == st["e2e_stub"]["mapped_reads"] \
         == fused_blocks
     assert st["e2e"]["k1_launches"] == 0  # the plain version on the CPU
     assert res["prologue_s"]["batches"] >= 1
     assert all(v["peak_rss_bytes"] > 0 for v in st.values())
     assert res["rss_at_start_bytes"] > 0 and res["card"] is None
+
+
+def test_profile_ingest_reads_the_card_scan_from_its_inflater(
+        bams, monkeypatch):
+    """The stubbed pass's card split: with the card route stood in for by
+    the CPU, profile_ingest records the inflater and the scan of every
+    segment it inflates (its records, its regions walked again; no CUDA
+    events on the CPU), and they add up to the file's records."""
+    from coverm_tpu_torch.io import fastscan
+    from coverm_tpu_torch.ops import bgzf_inflate as B
+    from coverm_tpu_torch.scripts import profile_ingest as P
+    monkeypatch.setenv("COVERM_TPU_SEGMENT_BYTES", "1000000")
+    monkeypatch.setattr(
+        fastscan, "_card_inflater",
+        lambda dev: lambda path, off, csz, usz, segments, at:
+        B.SegmentInflater(path, off, csz, usz, segments, at, "cpu"))
+    with P.inflaters_made() as made, P.scans_made() as scans:
+        mapped, blocks = P.e2e_pass(bams["flat"], torch.device("cpu"),
+                                    stub=True)
+    assert len(made) == 1
+    assert len(scans) == len(made[0].segments) > 1
+    assert sum(sc["records"] for sc in scans) == _jax_counts(
+        bams["flat"])[3]
+    assert all(sc["regions_walked"] >= 0 and sc["ms"] is None
+               for sc in scans)
+    assert blocks == mapped > 0
 
 
 def test_profile_ingest_cram_counts_equal_the_jax_package(tmp_path):
