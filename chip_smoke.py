@@ -134,8 +134,9 @@ Phases, in order; any failure exits non-zero:
      slot, the carry before it; also against the plain version, timed)
      and on phase 17's 32 MiB metabat segments under its filter: blocks,
      per-contig counts, runs, scalars and carry; its ms (CUDA events
-     around each call, and by step) beside its bound and the plain
-     version's.
+     around each call, and by step: the stitch's parallel check and its
+     walk apart, the fold apart from the emit) beside its bound and the
+     plain version's, and the regions the stitch walked in sequence.
 
 Phases 4 to 11 and 17 each run their command once to warm up (recording the
 kernel's inputs and the engine's batches), then once with the kernels'
@@ -1518,6 +1519,15 @@ def phase_scan(bam, metabat_bam, dev, card):
             if not np.array_equal(sc.stitch[:4], plain.stitch[:4]):
                 raise SystemExit(f"record scan: {name}'s stitch differs from "
                                  "the plain version's")
+            if not np.array_equal(sc.chunks, plain.chunks):
+                raise SystemExit(f"record scan: {name}'s chunk words differ "
+                                 "from the plain version's")
+            # the stitch's check stops at the first forged region, and
+            # settles the plain stream whole
+            walk_from = {**T.FORGED, "sorted": [0]}.get(name, [None])[0]
+            if walk_from is not None and sc.stitch[6] != walk_from:
+                raise SystemExit(f"record scan: {name}'s stitch walked from "
+                                 f"region {sc.stitch[6]}, not {walk_from}")
             n_streams += 1
     log(f"[scan] kernels equal ct_stats_scan and the plain version on "
         f"{n_streams} adversarial streams and filters")
@@ -1539,7 +1549,7 @@ def phase_scan(bam, metabat_bam, dev, card):
                                 _CARD_HEADROOM, dev)
         rec = {"ms": 0.0, "step_ms": {}, "plain_ms": 0.0, "bytes": 0,
                "read": 0, "written": 0, "blocks": 0, "records": 0,
-               "walked": 0, "segments": 0}
+               "walked": 0, "in_sequence": 0, "segments": 0}
         carry = torch.from_numpy(np.ascontiguousarray(carry)).to(dev) \
             if carry is not None and len(carry) else None
         try:
@@ -1580,6 +1590,7 @@ def phase_scan(bam, metabat_bam, dev, card):
                 rec["blocks"] += sc.btid.size
                 rec["records"] += sc.n_records
                 rec["walked"] += sc.regions_walked
+                rec["in_sequence"] += sc.regions_in_sequence
                 rec["segments"] += 1
                 carry = sc.tail
                 del slot
@@ -1601,21 +1612,29 @@ def phase_scan(bam, metabat_bam, dev, card):
         f"{main['records']} records, {main['blocks']} blocks, equal to "
         f"ct_stats_scan and the plain version (max_abs_err {err}); "
         f"kernels {main['ms']:.3f} ms "
-        f"(steps {json.dumps(main['step_ms'])}), {main['walked']} regions "
-        f"walked again by the stitch; plain version {main['plain_ms']:.1f} "
+        f"(steps {json.dumps(main['step_ms'])}), {main['in_sequence']} "
+        f"regions walked in sequence after the stitch's check, "
+        f"{main['walked']} of them walked again; plain version "
+        f"{main['plain_ms']:.1f} "
         f"ms; bound {bound_ms:.4f} ms (bytes: {main['read']} read of "
         f"{main['bytes']} inflated, {main['written']} written; every "
         f"inflated byte read would be {all_ms:.4f} ms)")
     log(f"[scan] phase 17's metabat BAM: {mb['segments']} segments of "
         f"{METABAT_SEGMENT_BYTES} bytes under the filter, equal to "
-        f"ct_stats_scan; kernels {mb['ms']:.3f} ms; {card}")
+        f"ct_stats_scan; kernels {mb['ms']:.3f} ms (steps "
+        f"{json.dumps(mb['step_ms'])}), {mb['in_sequence']} regions walked "
+        f"in sequence; {card}")
     return {"ms": main["ms"], "step_ms": main["step_ms"],
             "plain_ms": main["plain_ms"], "bound_ms": bound_ms,
             "max_abs_err": err, "bytes": main["bytes"],
             "bytes_read": main["read"], "bytes_written": main["written"],
             "blocks": main["blocks"], "records": main["records"],
-            "regions_walked": main["walked"], "segments": main["segments"],
+            "regions_walked": main["walked"],
+            "regions_in_sequence": main["in_sequence"],
+            "segments": main["segments"],
             "metabat_segments": mb["segments"], "metabat_ms": mb["ms"],
+            "metabat_step_ms": mb["step_ms"],
+            "metabat_regions_in_sequence": mb["in_sequence"],
             "streams": n_streams}
 
 
@@ -2039,8 +2058,11 @@ def main():
         "records": scan["records"],
         "segments": scan["segments"],
         "regions_walked": scan["regions_walked"],
+        "regions_in_sequence": scan["regions_in_sequence"],
         "metabat_segments": scan["metabat_segments"],
         "metabat_ms": scan["metabat_ms"],
+        "metabat_step_ms": scan["metabat_step_ms"],
+        "metabat_regions_in_sequence": scan["metabat_regions_in_sequence"],
         "adversarial_streams": scan["streams"],
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -28,38 +28,58 @@
 //       walks the chain from the first one to the region's end, keeping
 //       the starts it meets (sorted, as offsets in the region) and where
 //       the chain leaves the region. All regions walk at once.
-//   (b) stitch: one thread walks the regions in order from the segment's
-//       anchor (the carried record's start, known exactly). Where the true
-//       entry of a region is its speculative chain's first start, or one
-//       of its starts (a binary search), the region's records and exit are
-//       known; otherwise the thread walks the region itself from the true
-//       entry, until it meets the speculative chain or leaves the region.
-//       A missed speculation costs time, never correctness: a false
-//       candidate (quality or aux bytes that look like a header) only
-//       sends the speculation down a chain that the stitch does not take.
+//   (b) stitch, launched twice. The check: one block tests every region at
+//       once against the region before it. Region b is simple when the
+//       speculative exit of region b-1 (the anchor, the carried record's
+//       start, for b = 0) lies in region b and is its speculative chain's
+//       first start, or one of its starts (a binary search), and every
+//       region before it is simple. A min-reduce finds F, the first region
+//       that is not simple, and the first region whose chain stops; before
+//       those, each region's records are its speculation's, and their
+//       index is an exclusive block scan of the counts. The walk: when F
+//       comes first, one thread walks on in order from F's true entry (the
+//       exit of region F-1), region by region, taking a region's
+//       speculation where the entry meets it and walking the region itself
+//       otherwise, until it meets the speculative chain or leaves the
+//       region; the regions' speculation is staged in shared memory a tile
+//       at a time. On the cells every speculation is right and the walk
+//       has nothing to do. A missed speculation costs time, never
+//       correctness: a false candidate (quality or aux bytes that look like
+//       a header) or a record longer than a region only moves F forward.
 //       The stitch reproduces run_stats_pipeline's chain: it stops at
 //       block_size 0 or at a record that runs past the end (the carry) and
 //       raises the chain error at block_size < 33 with the same record
-//       index. The regions' speculation is staged in shared memory a tile
-//       at a time, so the common step reads no device memory.
+//       index.
 //   (c) records, launched twice. Analyse: a warp per region, a lane per
 //       record, does scan_chunk_records' per-record work (flag masks, the
 //       geometry check, the CIGAR walk, the NM search of scan_aux_tags,
 //       the single-read filter, the tid range check) and writes a count of
 //       blocks a record. Between the launches the caller takes the
-//       exclusive scan of the counts. Emit and fold: the region warps
-//       write each record's blocks at its offset, and one block a chunk
-//       folds the chunk's records in order into runs and the chunk's
-//       scalars, its thread 0 adding from tiles its other threads stage in
-//       shared memory.
+//       exclusive scan of the counts. Emit: the region warps write each
+//       record's blocks at its offset.
+//   (d) fold: one block a 32,768-record chunk, every thread working, a
+//       tile of 256 records at a time. A min-reduce finds the chunk's first
+//       error. Block scans compact the counted records before it in record
+//       order into shared memory, mark the runs (a counted record whose tid
+//       differs from the counted record before it starts one), and sum the
+//       runs' integer words and the chunk's counts; a run's integer sums
+//       are differences of the scan at its ends, exact in any order. Only
+//       the two float64 identity sums of a run need record order: one
+//       thread a run adds them from the compacted tile, eight loads ahead of
+//       its dependent adds, carrying the run in progress to the next tile.
+//       Skipping the records that are not counted is exact: the host adds
+//       nothing for them or +0.0, x + (+0.0) == x for every x the sum can
+//       hold (it starts at +0.0 and never holds -0.0 under round-to-
+//       nearest), and a record's identity is finite (its aligned length is
+//       above 0).
 // The float32 quotients of the single-read filter must round as numpy's
 // do: the library is built without fast math, with -prec-div=true
 // -ftz=false -fmad=false (ops/cuda_build.py).
 //
 // The same source builds for the host with g++ (no __CUDACC__): each step
-// runs region by region and record by record in one thread, through the
-// same functions (bam_scan_host), so the CPU tests hold this code against
-// the host scan.
+// runs through the same functions (bam_scan_host), a block's threads one
+// after another and its scans as loops, so the CPU tests hold this code
+// against the host scan.
 
 #include <cstdint>
 #include <cstring>
@@ -82,17 +102,25 @@ constexpr long long kChunk = 1ll << kChunkShift;  // the host's chunk
 constexpr int kRunWords = 9;    // tid, 6 integer sums, 2 float64 sums
 constexpr int kChunkWords = 8;  // n_primary, nm_missing, sorted, first and
                                 // last tid, err, runs, 0
-constexpr int kStitchWords = 8;  // records, end_off, err, stop, slow, 0...
-constexpr int kWarps = 4;        // warps a block of the region kernels
-constexpr int kTile = 2048;      // regions the stitch stages at a time
-constexpr int kFoldTile = 512;   // records a fold tile stages
-constexpr int kFoldThreads = 128;
+constexpr int kWarps = 4;       // warps a block of the region kernels
+constexpr int kTile = 2048;     // regions the stitch's walk stages at a time
+constexpr int kThreads = 256;   // threads a block of the stitch's check and
+                                // of the fold, records a fold tile
 
-// a record's flags (analyse -> fold)
+// a record's flags (analyse -> fold); kRunHead only in the fold's tile
 constexpr uint8_t kPrimary = 1, kNonsupp = 2, kHasIdv = 4, kCounted = 8,
-                  kError = 16;
+                  kError = 16, kRunHead = 32;
 // how the chain stopped
 enum Stop { kEnd = 0, kZero = 1, kPastEnd = 2, kTooShort = 3 };
+// the launches of one segment's scan, in order
+enum Step {
+  kSpeculate = 0,
+  kStitchCheck = 1,
+  kStitchWalk = 2,
+  kAnalyse = 3,
+  kFold = 4,
+  kEmit = 5
+};
 
 }  // namespace
 
@@ -156,6 +184,87 @@ SCAN_HD long long f64_bits(double d) {
 #endif
 }
 
+// ---- one block's work, written once for the card and the host
+
+// Runs f(t) for every thread t of the block, then waits for them all: on
+// the card each thread runs its own f and meets the others at a
+// __syncthreads(); the host runs the threads one after another. So f
+// writes only shared or device memory and its own locals; what the
+// block's threads all hold alike lives in the caller's locals.
+template <class F>
+SCAN_HD void each(F f) {
+#ifdef __CUDA_ARCH__
+  f((int)threadIdx.x);
+  __syncthreads();
+#else
+  for (int t = 0; t < kThreads; t++) f(t);
+#endif
+}
+
+// Exclusive scan over the block's threads of x[t * N + k], in place, for
+// each k < N; the totals into tot[k]. warp: kThreads / 32 * N words of
+// shared scratch. On the card every thread calls it: warp shuffles, then
+// the warps' totals scanned by warp 0.
+template <int N>
+SCAN_HD void block_scan(long long* x, long long* warp, long long* tot) {
+#ifdef __CUDA_ARCH__
+  constexpr int kW = kThreads / 32;
+  int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  long long v[N], s[N];
+#pragma unroll
+  for (int k = 0; k < N; k++) s[k] = v[k] = x[t * N + k];
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1)
+#pragma unroll
+    for (int k = 0; k < N; k++) {
+      long long o = __shfl_up_sync(0xffffffffu, s[k], d);
+      if (lane >= d) s[k] += o;
+    }
+  if (lane == 31)
+#pragma unroll
+    for (int k = 0; k < N; k++) warp[w * N + k] = s[k];
+  __syncthreads();
+  if (w == 0) {
+#pragma unroll
+    for (int k = 0; k < N; k++) {
+      long long u = lane < kW ? warp[lane * N + k] : 0, incl = u;
+#pragma unroll
+      for (int d = 1; d < kW; d <<= 1) {
+        long long o = __shfl_up_sync(0xffffffffu, incl, d);
+        if (lane >= d) incl += o;
+      }
+      if (lane < kW) warp[lane * N + k] = incl - u;
+      if (lane == kW - 1) tot[k] = incl;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < N; k++) x[t * N + k] = s[k] - v[k] + warp[w * N + k];
+  __syncthreads();
+#else
+  (void)warp;
+  long long run[N] = {};
+  for (int t = 0; t < kThreads; t++)
+    for (int k = 0; k < N; k++) {
+      long long v = x[t * N + k];
+      x[t * N + k] = run[k];
+      run[k] += v;
+    }
+  for (int k = 0; k < N; k++) tot[k] = run[k];
+#endif
+}
+
+// *p = min(*p, v), *p in shared memory (an integer atomic on the card)
+SCAN_HD void shared_min(long long* p, long long v) {
+#ifdef __CUDA_ARCH__
+  atomicMin(p, v);
+#else
+  if (v < *p) *p = v;
+#endif
+}
+
+// ---- (a) speculate
+
 // A record header at q that a true record would have: a block_size of 33
 // or more inside the bytes, refID and next_refID in [-1, n_ref), a read
 // name of one byte or more ending in NUL, and the fixed, name, CIGAR,
@@ -197,6 +306,8 @@ SCAN_HD void speculate_walk(const ScanArgs& a, long long b, long long p) {
   a.cnt[b] = n;
 }
 
+// ---- (b) stitch
+
 SCAN_HD int find(const int* list, int n, int v) {
   int lo = 0, hi = n;
   while (lo < hi) {
@@ -209,11 +320,40 @@ SCAN_HD int find(const int* list, int n, int v) {
   return lo < n && list[lo] == v ? lo : -1;
 }
 
+// The index of entry e (in the region from r0) among the starts of the
+// region's speculative chain (first start f, n starts in list), or -1.
+SCAN_HD int spec_rank(long long f, const int* list, int n, long long e,
+                      long long r0) {
+  if (f == e) return 0;
+  if (f >= 0 && f < e) return find(list, n, (int)(e - r0));
+  return -1;
+}
+
 struct StitchState {
-  long long e, nrec, slow, end_off, err;
+  long long e, nrec, slow, seq, end_off, err;
   int stop;
   bool done;
 };
+
+// The chain stops at x, after s.nrec records: how, as the host's walk
+// tells it.
+SCAN_HD void stitch_end(const ScanArgs& a, long long x, StitchState& s) {
+  s.done = true;
+  s.end_off = x;
+  if (x + 4 > a.end) {
+    s.stop = kEnd;
+  } else {
+    uint32_t bs = ld_u32(a.data + x);
+    if (bs == 0) {
+      s.stop = kZero;
+    } else if (x + 4 + (long long)bs > a.end) {
+      s.stop = kPastEnd;
+    } else {
+      s.stop = kTooShort;  // below the BAM fixed-block minimum
+      s.err = s.nrec + 1;
+    }
+  }
+}
 
 // The true chain over regions [t0, t1), whose speculation is f_, x_, c_
 // (indexed from t0), from s.e on.
@@ -223,9 +363,7 @@ SCAN_HD void stitch_tile(const ScanArgs& a, const long long* f_,
   while (!s.done) {
     long long e = s.e;
     if (e + 4 > a.end) {
-      s.done = true;
-      s.end_off = e;
-      s.stop = kEnd;
+      stitch_end(a, e, s);
       return;
     }
     long long b = (e - a.start) >> kLogRegion;
@@ -235,12 +373,9 @@ SCAN_HD void stitch_tile(const ScanArgs& a, const long long* f_,
     long long f = f_[b - t0];
     int sc = c_[b - t0];
     const int* list = a.list + b * kCap;
-    int k = -1;
-    if (f == e)
-      k = 0;
-    else if (f >= 0 && f < e)
-      k = find(list, sc, (int)(e - r0));
+    int k = spec_rank(f, list, sc, e, r0);
     long long c, x;
+    s.seq++;
     if (k >= 0) {
       c = sc - k;
       x = x_[b - t0];
@@ -271,34 +406,102 @@ SCAN_HD void stitch_tile(const ScanArgs& a, const long long* f_,
     s.nrec += c;
     s.e = x;
     if (x < r1) {  // the chain stops in this region
-      s.done = true;
-      s.end_off = x;
-      if (x + 4 > a.end) {
-        s.stop = kEnd;
-      } else {
-        uint32_t bs = ld_u32(a.data + x);
-        if (bs == 0) {
-          s.stop = kZero;
-        } else if (x + 4 + (long long)bs > a.end) {
-          s.stop = kPastEnd;
-        } else {
-          s.stop = kTooShort;  // below the BAM fixed-block minimum
-          s.err = s.nrec + 1;
-        }
-      }
+      stitch_end(a, x, s);
       return;
     }
   }
 }
 
-SCAN_HD void stitch_finish(const ScanArgs& a, const StitchState& s) {
+// The stitch's eight words: records, end_off, err, stop, regions walked
+// again, regions walked in sequence, the first of those (`from`, 0: none),
+// 0.
+SCAN_HD void stitch_finish(const ScanArgs& a, const StitchState& s,
+                           long long from) {
   a.stitch[0] = s.nrec;
   a.stitch[1] = s.end_off;
   a.stitch[2] = s.err;
   a.stitch[3] = s.stop;
   a.stitch[4] = s.slow;
-  for (int i = 5; i < kStitchWords; i++) a.stitch[i] = 0;
+  a.stitch[5] = s.seq;
+  a.stitch[6] = from;
+  a.stitch[7] = 0;
 }
+
+struct CheckShared {
+  long long count[kThreads];
+  long long warp[kThreads / 32];
+  long long tot, first_bad, first_stop;
+};
+
+// The stitch's check, for every region at once (see (b) above). When the
+// chain stops before the first region that is not simple, it writes the
+// stitch words; otherwise it leaves F in word 6 for the walk. Region 0 is
+// always simple (its speculation starts at the anchor), so F >= 1.
+SCAN_HD void stitch_check(const ScanArgs& a, CheckShared& s) {
+  long long n = a.n_regions;
+  each([&](int t) {
+    if (t == 0) s.first_bad = s.first_stop = n;
+  });
+  each([&](int t) {
+    long long bad = n, stops = n;
+    for (long long b = t; b < n; b += kThreads) {
+      long long r0 = a.start + (b << kLogRegion);
+      long long r1 = min_ll(r0 + kRegion, a.end);
+      long long e = b ? a.exit_[b - 1] : a.start;  // the candidate entry
+      int k = e >= r0 && e < r1 ? spec_rank(a.first[b], a.list + b * kCap,
+                                            a.cnt[b], e, r0)
+                                : -1;
+      a.entry[b] = e;
+      a.rank[b] = k;
+      a.count[b] = k >= 0 ? a.cnt[b] - k : 0;
+      if (k < 0 && bad == n) bad = b;  // b rises: the thread's first is
+      long long x = a.exit_[b];        // its least
+      if ((x < r1 || x + 4 > a.end) && stops == n) stops = b;
+    }
+    shared_min(&s.first_bad, bad);
+    shared_min(&s.first_stop, stops);
+  });
+  // The check settles regions [0, F). A chain that stops in a simple
+  // region S leaves region S + 1 no entry it can meet, so S < F means
+  // F == S + 1.
+  long long F = s.first_bad, S = s.first_stop;
+  long long carry = 0;
+  for (long long t0 = 0; t0 < n; t0 += kThreads) {
+    each([&](int t) {
+      long long b = t0 + t;
+      s.count[t] = b < F ? a.count[b] : 0;
+      if (b >= F && b < n) a.count[b] = 0;
+    });
+    block_scan<1>(s.count, s.warp, &s.tot);
+    each([&](int t) {
+      long long b = t0 + t;
+      if (b < F) a.base[b] = carry + s.count[t];
+    });
+    carry += s.tot;
+  }
+  each([&](int t) {
+    if (t) return;
+    StitchState st{};
+    if (S < F) {
+      st.nrec = a.base[S] + a.count[S];
+      stitch_end(a, a.exit_[S], st);
+      stitch_finish(a, st, 0);
+    } else {
+      stitch_finish(a, st, F);
+    }
+  });
+}
+
+// Where the walk from region F (stitch word 6) starts: the exit of region
+// F-1, which the check settled, and the records before it.
+SCAN_HD StitchState walk_start(const ScanArgs& a, long long F) {
+  StitchState s{};
+  s.e = a.exit_[F - 1];
+  s.nrec = a.base[F - 1] + a.count[F - 1];
+  return s;
+}
+
+// ---- (c) records
 
 // The single-read filter of native/bamdecode.cpp single_read_passes
 // (readfilter.single_read_passes), bit for bit: IEEE float32 quotients, so
@@ -472,93 +675,189 @@ SCAN_HD void emit(const ScanArgs& a, long long g) {
   }
 }
 
-struct Run {
-  long long tid, primary, nonsupp, all, nm, indel, blocks;
+// ---- (d) fold
+
+// the fold's scan columns: whether a record starts a run; the run words
+// 1-6; the chunk's counts
+enum Col {
+  kHeadCol = 0,
+  kPrimaryCol = 1,
+  kNonsuppCol = 2,
+  kAllCol = 3,
+  kNmCol = 4,
+  kIndelCol = 5,
+  kBlocksCol = 6,
+  kNPrimaryCol = 7,
+  kNmMissingCol = 8,
+  kUnsortedCol = 9,
+  kCols = 10
+};
+
+struct RunSums {
+  long long w[7];  // tid, then run words 1-6
   double ident_primary, ident_nonsupp;
 };
 
-struct FoldState {
-  long long n_primary, nm_missing, err, n_runs;
-  int first_tid, last_tid, prev_tid, cur_tid;
-  bool sorted, stop;
-  Run run;
+struct FoldShared {
+  long long pos[kThreads];          // counted? then its place in the tile
+  long long col[kThreads * kCols];  // the columns of the tile's records
+  long long warp[kThreads / 32 * kCols];
+  long long tot[kCols], n_counted;
+  double sp[kThreads], sn[kThreads];  // the tile's counted records in
+  int stid[kThreads];                 // order: identity terms and tids
+  int seg[kThreads + 1];  // the thread whose record starts segment h >= 1
+  int tid[kThreads];
+  uint8_t fl[kThreads];  // a counted record's flags, else 0
+  RunSums carry[2];      // the run in progress, by the tile's parity
+  long long stop;
 };
+static_assert(sizeof(FoldShared) <= 48 * 1024, "static shared memory");
 
-SCAN_HD void fold_init(FoldState& s) {
-  s.n_primary = s.nm_missing = s.err = s.n_runs = 0;
-  s.first_tid = s.last_tid = s.prev_tid = -1;
-  s.cur_tid = -2;
-  s.sorted = true;
-  s.stop = false;
-  s.run = Run{};
-}
-
-SCAN_HD void fold_flush(FoldState& s, long long* runs) {
-  if (s.cur_tid < 0) return;
-  long long* w = runs + s.n_runs * kRunWords;
-  w[0] = s.run.tid;
-  w[1] = s.run.primary;
-  w[2] = s.run.nonsupp;
-  w[3] = s.run.all;
-  w[4] = s.run.nm;
-  w[5] = s.run.indel;
-  w[6] = s.run.blocks;
-  w[7] = f64_bits(s.run.ident_primary);
-  w[8] = f64_bits(s.run.ident_nonsupp);
-  s.n_runs++;
-}
-
-// scan_chunk_records' fold of record r of the chunk (runs: the chunk's).
-SCAN_HD void fold_one(FoldState& s, long long r, uint8_t fl, int tid, int nb,
-                      long long nm, long long ind, double idv,
-                      long long* runs) {
-  bool primary = fl & kPrimary;
-  s.n_primary += primary;
-  if (fl & kError) {
-    s.err = r + 1;
-    fold_flush(s, runs);
-    s.stop = true;
-    return;
-  }
-  if (!(fl & kCounted)) return;
-  if (s.first_tid < 0) s.first_tid = tid;
-  if (tid < s.prev_tid) s.sorted = false;
-  s.prev_tid = tid;
-  s.last_tid = tid;
-  if (tid != s.cur_tid) {
-    fold_flush(s, runs);
-    s.run = Run{};
-    s.run.tid = tid;
-    s.cur_tid = tid;
-  }
-  bool nonsupp = fl & kNonsupp;
-  s.run.all++;
-  s.run.primary += primary;
-  s.run.nonsupp += nonsupp;
-  s.run.blocks += nb;
-  s.run.indel += ind;
-  if (nm < 0) {
-    s.nm_missing++;  // the caller raises before any result is used
-  } else {
-    s.run.nm += nm;
-    if (fl & kHasIdv) {
-      s.run.ident_primary += primary ? idv : 0.0;
-      s.run.ident_nonsupp += nonsupp ? idv : 0.0;
+// The float64 sums of the tile's counted records [j, e), added in record
+// order onto x and y: only dependent adds, their loads eight ahead.
+SCAN_HD void fold_chain(const double* sp, const double* sn, int j, int e,
+                        double& x, double& y) {
+  for (; j + 8 <= e; j += 8) {
+    double p[8], q[8];
+#pragma unroll
+    for (int u = 0; u < 8; u++) {
+      p[u] = sp[j + u];
+      q[u] = sn[j + u];
+    }
+#pragma unroll
+    for (int u = 0; u < 8; u++) {
+      x += p[u];
+      y += q[u];
     }
   }
+  for (; j < e; j++) {
+    x += sp[j];
+    y += sn[j];
+  }
 }
 
-SCAN_HD void fold_finish(const ScanArgs& a, FoldState& s, long long c) {
-  if (!s.stop) fold_flush(s, a.runs + c * kChunk * kRunWords);
-  long long* w = a.chunks + c * kChunkWords;
-  w[0] = s.n_primary;
-  w[1] = s.nm_missing;
-  w[2] = s.sorted ? 1 : 0;
-  w[3] = s.first_tid;
-  w[4] = s.last_tid;
-  w[5] = s.err;
-  w[6] = s.n_runs;
-  w[7] = 0;
+SCAN_HD void put_run(long long* runs, long long r, const RunSums& s) {
+  long long* w = runs + r * kRunWords;
+  for (int k = 0; k < 7; k++) w[k] = s.w[k];
+  w[7] = f64_bits(s.ident_primary);
+  w[8] = f64_bits(s.ident_nonsupp);
+}
+
+// Segment h of H + 1 of a tile whose scans are done: segment 0 goes on
+// with the run in progress (run n_runs - 1), the h-th run head starts
+// segment h (run n_runs - 1 + h). A segment before the last ends its run;
+// the last carries its run to the next tile.
+SCAN_HD void fold_segment(const ScanArgs& a, FoldShared& s, long long lo,
+                          int h, int H, long long n_runs, int par) {
+  int n = (int)s.n_counted;
+  int j0 = h ? (int)s.pos[s.seg[h]] : 0;
+  int j1 = h < H ? (int)s.pos[s.seg[h + 1]] : n;
+  RunSums r;
+  if (h == 0) {
+    r = s.carry[par];
+  } else {
+    r = RunSums{};
+    r.w[0] = s.stid[j0];
+  }
+  for (int k = 1; k < 7; k++)
+    r.w[k] += (h < H ? s.col[s.seg[h + 1] * kCols + k] : s.tot[k]) -
+              (h ? s.col[s.seg[h] * kCols + k] : 0);
+  fold_chain(s.sp, s.sn, j0, j1, r.ident_primary, r.ident_nonsupp);
+  if (h == H)
+    s.carry[par ^ 1] = r;
+  else if (n_runs - 1 + h >= 0)
+    put_run(a.runs + lo * kRunWords, n_runs - 1 + h, r);
+}
+
+// scan_chunk_records' fold of chunk ch by one block (see (d) above).
+SCAN_HD void fold_chunk(const ScanArgs& a, long long ch, FoldShared& s) {
+  long long lo = ch << kChunkShift;
+  long long hi = min_ll(lo + kChunk, a.n_records);
+  each([&](int t) {
+    if (t) return;
+    s.stop = hi;
+    s.carry[0] = RunSums{};
+  });
+  each([&](int t) {  // the first error: every load at once, no early exit
+    long long m = hi;
+    for (long long g = lo + t; g < hi; g += kThreads)
+      if ((a.flags[g] & kError) && g < m) m = g;
+    shared_min(&s.stop, m);
+  });
+  long long stop = s.stop;
+  long long last = stop < hi ? stop + 1 : hi;  // the error's primary counts
+  long long n_runs = 0, first_tid = -1, last_tid = -1;
+  long long acc[kCols] = {};
+  int par = 0;
+  for (long long t0 = lo; t0 < last; t0 += kThreads, par ^= 1) {
+    each([&](int t) {
+      long long g = t0 + t;
+      uint8_t fl = g < last ? a.flags[g] : 0;
+      bool c = g < stop && (fl & kCounted);
+      long long nm = c ? a.nm[g] : 0;
+      long long* v = s.col + t * kCols;
+      s.fl[t] = c ? fl : 0;
+      s.tid[t] = c ? a.tid[g] : 0;
+      s.pos[t] = c;
+      v[kHeadCol] = 0;
+      v[kPrimaryCol] = c && (fl & kPrimary);
+      v[kNonsuppCol] = c && (fl & kNonsupp);
+      v[kAllCol] = c;
+      v[kNmCol] = nm >= 0 ? nm : 0;
+      v[kIndelCol] = c ? a.ind[g] : 0;
+      v[kBlocksCol] = c ? a.nblk[g] : 0;
+      v[kNPrimaryCol] = (fl & kPrimary) != 0;
+      v[kNmMissingCol] = nm < 0;
+      v[kUnsortedCol] = 0;
+    });
+    block_scan<1>(s.pos, s.warp, &s.n_counted);
+    each([&](int t) {  // the counted records, compacted in order
+      uint8_t fl = s.fl[t];
+      if (!fl) return;
+      int p = (int)s.pos[t];
+      double idv = a.idv[t0 + t];
+      s.stid[p] = s.tid[t];
+      s.sp[p] = (fl & kHasIdv) && (fl & kPrimary) ? idv : 0.0;
+      s.sn[p] = (fl & kHasIdv) && (fl & kNonsupp) ? idv : 0.0;
+    });
+    each([&](int t) {  // a run starts where the tid changes
+      if (!s.fl[t]) return;
+      int p = (int)s.pos[t];
+      int prev = p ? s.stid[p - 1] : (int)last_tid;  // -1: none yet
+      bool head = s.tid[t] != prev;
+      s.col[t * kCols + kHeadCol] = head;
+      s.col[t * kCols + kUnsortedCol] = s.tid[t] < prev;
+      if (head) s.fl[t] |= kRunHead;
+    });
+    block_scan<kCols>(s.col, s.warp, s.tot);
+    int H = (int)s.tot[kHeadCol];
+    each([&](int t) {
+      if (s.fl[t] & kRunHead) s.seg[s.col[t * kCols + kHeadCol] + 1] = t;
+    });
+    each([&](int t) {
+      for (int h = t; h <= H; h += kThreads)
+        fold_segment(a, s, lo, h, H, n_runs, par);
+    });
+    n_runs += H;
+    if (s.n_counted) {
+      if (first_tid < 0) first_tid = s.stid[0];
+      last_tid = s.stid[s.n_counted - 1];
+    }
+    for (int k = kNPrimaryCol; k < kCols; k++) acc[k] += s.tot[k];
+  }
+  each([&](int t) {
+    if (t) return;
+    if (n_runs) put_run(a.runs + lo * kRunWords, n_runs - 1, s.carry[par]);
+    long long* w = a.chunks + ch * kChunkWords;
+    w[0] = acc[kNPrimaryCol];
+    w[1] = acc[kNmMissingCol];  // the caller raises before any result is
+    w[2] = acc[kUnsortedCol] == 0;  // used
+    w[3] = first_tid;
+    w[4] = last_tid;
+    w[5] = stop < hi ? stop - lo + 1 : 0;
+    w[6] = n_runs;
+    w[7] = 0;
+  });
 }
 
 SCAN_HD long long n_chunks(const ScanArgs& a) {
@@ -602,105 +901,77 @@ __global__ void __launch_bounds__(32 * kWarps)
   }
 }
 
-__global__ void __launch_bounds__(256) bam_scan_stitch(ScanArgs a) {
+__global__ void __launch_bounds__(kThreads) bam_scan_stitch(ScanArgs a) {
+  __shared__ CheckShared s;
+  stitch_check(a, s);
+}
+
+__global__ void __launch_bounds__(256) bam_scan_stitch_walk(ScanArgs a) {
   __shared__ long long sf[kTile], sx[kTile];
   __shared__ int sc[kTile];
-  StitchState s{a.start, 0, 0, a.start, 0, kEnd, false};
-  for (long long t0 = 0; t0 < a.n_regions; t0 += kTile) {
+  long long from = a.stitch[6];
+  if (from == 0) return;  // the check settled the chain
+  StitchState s = walk_start(a, from);
+  for (long long t0 = from / kTile * kTile; t0 < a.n_regions; t0 += kTile) {
     long long t1 = min_ll(t0 + kTile, a.n_regions);
     for (long long i = t0 + threadIdx.x; i < t1; i += blockDim.x) {
       sf[i - t0] = a.first[i];
       sx[i - t0] = a.exit_[i];
       sc[i - t0] = a.cnt[i];
-      a.count[i] = 0;
     }
     __syncthreads();
     if (threadIdx.x == 0) stitch_tile(a, sf, sx, sc, t0, t1, s);
     __syncthreads();
   }
-  if (threadIdx.x == 0) stitch_finish(a, s);
+  if (threadIdx.x == 0) stitch_finish(a, s, from);
 }
 
-// mode 0 analyse; mode 1 the region blocks emit and the blocks after them
-// fold one chunk each
-__global__ void __launch_bounds__(kFoldThreads)
+// mode 0 analyse, mode 1 emit: a warp a region
+__global__ void __launch_bounds__(32 * kWarps)
     bam_scan_records(ScanArgs a, int mode) {
-  extern __shared__ unsigned char smem[];
-  long long region_blocks = (a.n_regions + kWarps - 1) / kWarps;
-  if ((long long)blockIdx.x < region_blocks) {
-    int lane = threadIdx.x & 31;
-    long long b = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-    if (b >= a.n_regions) return;
-    int c = a.count[b];
-    long long base = a.base[b];
-    if (mode == 0) {
-      int k = a.rank[b];
-      if (k >= 0) {
-        long long r0 = a.start + (b << kLogRegion);
-        const int* list = a.list + b * kCap + k;
-        for (int i = lane; i < c; i += 32) a.rec_off[base + i] = r0 + list[i];
-      } else if (lane == 0) {
-        long long pos = a.entry[b];
-        for (int i = 0; i < c; i++) {
-          a.rec_off[base + i] = pos;
-          pos += 4 + (long long)ld_u32(a.data + pos);
-        }
-      }
-      __syncwarp();
-      for (int i = lane; i < c; i += 32)
-        analyse(a, a.rec_off[base + i], base + i);
-    } else {
-      for (int i = lane; i < c; i += 32) {
-        long long g = base + i;
-        if (a.nblk[g]) emit(a, g);
+  int lane = threadIdx.x & 31;
+  long long b = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (b >= a.n_regions) return;
+  int c = a.count[b];
+  long long base = a.base[b];
+  if (mode == 0) {
+    int k = a.rank[b];
+    if (k >= 0) {
+      long long r0 = a.start + (b << kLogRegion);
+      const int* list = a.list + b * kCap + k;
+      for (int i = lane; i < c; i += 32) a.rec_off[base + i] = r0 + list[i];
+    } else if (lane == 0) {
+      long long pos = a.entry[b];
+      for (int i = 0; i < c; i++) {
+        a.rec_off[base + i] = pos;
+        pos += 4 + (long long)ld_u32(a.data + pos);
       }
     }
-    return;
-  }
-  // fold chunk ch: thread 0 adds, tile by tile, what the block stages
-  long long ch = (long long)blockIdx.x - region_blocks;
-  long long lo = ch << kChunkShift;
-  long long hi = min_ll(lo + kChunk, a.n_records);
-  double* t_idv = (double*)smem;
-  long long* t_nm = (long long*)(t_idv + kFoldTile);
-  long long* t_ind = t_nm + kFoldTile;
-  int* t_tid = (int*)(t_ind + kFoldTile);
-  int* t_nb = t_tid + kFoldTile;
-  uint8_t* t_fl = (uint8_t*)(t_nb + kFoldTile);
-  FoldState s;
-  fold_init(s);
-  long long* runs = a.runs + lo * kRunWords;
-  for (long long t = lo; t < hi; t += kFoldTile) {
-    long long n = min_ll(kFoldTile, hi - t);
-    for (long long i = threadIdx.x; i < n; i += blockDim.x) {
-      t_idv[i] = a.idv[t + i];
-      t_nm[i] = a.nm[t + i];
-      t_ind[i] = a.ind[t + i];
-      t_tid[i] = a.tid[t + i];
-      t_nb[i] = a.nblk[t + i];
-      t_fl[i] = a.flags[t + i];
+    __syncwarp();
+    for (int i = lane; i < c; i += 32)
+      analyse(a, a.rec_off[base + i], base + i);
+  } else {
+    for (int i = lane; i < c; i += 32) {
+      long long g = base + i;
+      if (a.nblk[g]) emit(a, g);
     }
-    __syncthreads();
-    if (threadIdx.x == 0)
-      for (long long i = 0; i < n && !s.stop; i++)
-        fold_one(s, t - lo + i, t_fl[i], t_tid[i], t_nb[i], t_nm[i],
-                 t_ind[i], t_idv[i], runs);
-    __syncthreads();
   }
-  if (threadIdx.x == 0) fold_finish(a, s, ch);
 }
 
-constexpr int kFoldSmem = kFoldTile * (8 + 8 + 8 + 4 + 4 + 1);
+__global__ void __launch_bounds__(kThreads) bam_scan_fold(ScanArgs a) {
+  __shared__ FoldShared s;
+  fold_chunk(a, blockIdx.x, s);
+}
 
 }  // namespace
 
 extern "C" {
 
-// Step `step` of one segment's scan on card `device`, on `stream`: 0
-// speculate, 1 stitch, 2 analyse, 3 emit and fold. Returns 0, or the CUDA
-// error plus 1000 times the step that met it (1 the card, 2 the launch).
-// Every pointer of *args is the card's memory. The library links its own
-// static runtime, so the caller names the card, as for sweep_scan_launch.
+// Launch `step` (enum Step) of one segment's scan on card `device`, on
+// `stream`. Returns 0, or the CUDA error plus 1000 times the step that met
+// it (1 the card, 2 the launch). Every pointer of *args is the card's
+// memory. The library links its own static runtime, so the caller names
+// the card, as for sweep_scan_launch.
 int bam_scan_launch(int step, const ScanArgs* args, int device,
                     void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -709,21 +980,25 @@ int bam_scan_launch(int step, const ScanArgs* args, int device,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   unsigned region_blocks = (unsigned)((a.n_regions + kWarps - 1) / kWarps);
   switch (step) {
-    case 0:
-      if (a.n_regions)
+    case kSpeculate:
+      if (region_blocks)
         bam_scan_speculate<<<region_blocks, 32 * kWarps, 0, st>>>(a);
       break;
-    case 1:
-      bam_scan_stitch<<<1, 256, 0, st>>>(a);
+    case kStitchCheck:
+      bam_scan_stitch<<<1, kThreads, 0, st>>>(a);
       break;
-    case 2:
-      if (a.n_regions)
-        bam_scan_records<<<region_blocks, kFoldThreads, 0, st>>>(a, 0);
+    case kStitchWalk:
+      bam_scan_stitch_walk<<<1, 256, 0, st>>>(a);
       break;
-    case 3:
-      if (region_blocks + n_chunks(a))
-        bam_scan_records<<<region_blocks + (unsigned)n_chunks(a),
-                           kFoldThreads, kFoldSmem, st>>>(a, 1);
+    case kAnalyse:
+    case kEmit:
+      if (region_blocks)
+        bam_scan_records<<<region_blocks, 32 * kWarps, 0, st>>>(
+            a, step == kEmit);
+      break;
+    case kFold:
+      if (n_chunks(a))
+        bam_scan_fold<<<(unsigned)n_chunks(a), kThreads, 0, st>>>(a);
       break;
     default:
       return 2000 + (int)cudaErrorInvalidValue;
@@ -738,12 +1013,12 @@ int bam_scan_launch(int step, const ScanArgs* args, int device,
 
 extern "C" {
 
-// Step `step` of one segment's scan on the host, in one thread through the
+// `step` (enum Step) of one segment's scan on the host, through the
 // kernels' own functions; the CPU tests' view of the kernels.
 int bam_scan_host(int step, const ScanArgs* args) {
   const ScanArgs& a = *args;
   switch (step) {
-    case 0:
+    case kSpeculate:
       for (long long b = 0; b < a.n_regions; b++) {
         long long r0 = a.start + (b << kLogRegion);
         long long r1 = min_ll(r0 + kRegion, a.end);
@@ -759,14 +1034,21 @@ int bam_scan_host(int step, const ScanArgs* args) {
         }
       }
       return 0;
-    case 1: {
-      StitchState s{a.start, 0, 0, a.start, 0, kEnd, false};
-      for (long long b = 0; b < a.n_regions; b++) a.count[b] = 0;
-      stitch_tile(a, a.first, a.exit_, a.cnt, 0, a.n_regions, s);
-      stitch_finish(a, s);
+    case kStitchCheck: {
+      CheckShared s;
+      stitch_check(a, s);
       return 0;
     }
-    case 2:
+    case kStitchWalk: {
+      long long from = a.stitch[6];
+      if (from) {
+        StitchState s = walk_start(a, from);
+        stitch_tile(a, a.first, a.exit_, a.cnt, 0, a.n_regions, s);
+        stitch_finish(a, s, from);
+      }
+      return 0;
+    }
+    case kAnalyse:
       for (long long b = 0; b < a.n_regions; b++) {
         int c = a.count[b];
         long long pos = a.entry[b];
@@ -783,19 +1065,15 @@ int bam_scan_host(int step, const ScanArgs* args) {
         }
       }
       return 0;
-    case 3:
+    case kFold: {
+      FoldShared* s = new FoldShared;
+      for (long long ch = 0; ch < n_chunks(a); ch++) fold_chunk(a, ch, *s);
+      delete s;
+      return 0;
+    }
+    case kEmit:
       for (long long g = 0; g < a.n_records; g++)
         if (a.nblk[g]) emit(a, g);
-      for (long long ch = 0; ch < n_chunks(a); ch++) {
-        long long lo = ch << kChunkShift;
-        long long hi = min_ll(lo + kChunk, a.n_records);
-        FoldState s;
-        fold_init(s);
-        for (long long g = lo; g < hi && !s.stop; g++)
-          fold_one(s, g - lo, a.flags[g], a.tid[g], a.nblk[g], a.nm[g],
-                   a.ind[g], a.idv[g], a.runs + lo * kRunWords);
-        fold_finish(a, s, ch);
-      }
       return 0;
     default:
       return -1;

@@ -8,8 +8,9 @@ run_stats_pipeline and scan_chunk_records), whose outputs they give bit
 for bit. They replace no TPU kernel: the JAX package scans records on the
 host. The source is compiled with nvcc for sm_90a into a shared library
 with a plain C interface on first use (ops/cuda_build.py) and bound with
-ctypes; a scan is four launches of its three kernels (speculate, stitch,
-records twice).
+ctypes; a scan is six launches of its five kernels (speculate, the
+stitch's check and walk, records twice: analyse and emit, and the fold
+between them).
 
 `scan_segment(data, start, end, n_ref, skip_mask, req_mask, read_filter)`
 scans the complete records of the uint8 tensor `data` from `start` (the
@@ -39,15 +40,18 @@ CHUNK_SHIFT = 15
 CHUNK = 1 << CHUNK_SHIFT  # the host scan's chunk: records a run restarts at
 RUN_WORDS = 9    # tid, primary, nonsupp, all, nm, indel, blocks, two f64
 CHUNK_WORDS = 8  # n_primary, nm_missing, sorted, first, last, err, runs, 0
-STITCH_WORDS = 8  # records, end_off, err, stop, regions walked again, 0...
+# records, end_off, err, stop, regions walked again, regions walked in
+# sequence, the first of those (0: none), 0
+STITCH_WORDS = 8
 # how the chain stopped (the stitch's stop word)
 STOP_END, STOP_ZERO, STOP_PAST_END, STOP_TOO_SHORT = range(4)
 # a record's flags
 PRIMARY, NONSUPP, HAS_IDV, COUNTED, ERROR = 1, 2, 4, 8, 16
-STEPS = ("speculate", "stitch", "analyse", "emit_fold")
+# the launches, by csrc/bam_scan.cu enum Step
+STEPS = ("speculate", "stitch", "stitch_walk", "analyse", "fold", "emit")
 SECTOR = 32  # bytes of the card's smallest memory access (bytes_read)
 
-# scans by the CUDA kernels (one a segment: its four launches); the plain
+# scans by the CUDA kernels (one a segment: its six launches); the plain
 # version does not count
 bam_scan_launches = 0
 
@@ -144,6 +148,12 @@ class SegmentScan:
     def regions_walked(self) -> int:
         return int(self.stitch[4])
 
+    @property
+    def regions_in_sequence(self) -> int:
+        """Regions the stitch walked in order after its parallel check
+        (the kernels'; 0 from the plain version)."""
+        return int(self.stitch[5])
+
     def scalars(self) -> np.ndarray:
         """ct_stats_scan's ten scalars, the chunks merged as
         run_stats_pipeline merges them."""
@@ -212,9 +222,12 @@ def run_steps(data, start, end, n_ref, skip_mask, req_mask, read_filter,
     """The scan's steps over `data`'s device, each step through
     launch(step, ScanArgs): the kernels on a card (scan_segment), or the
     kernels' host build on the CPU (the tests). Allocates every buffer
-    with torch.empty on that device and reads back the three counts the
-    next allocations need (records, blocks, runs). The bytes after the
-    last complete record come back with the outputs (SegmentScan.tail)."""
+    with torch.empty on that device and waits for the card twice before
+    the end: for the record count, then for the block count and the
+    chunks' words together (the fold runs before the block scan), which
+    size the blocks, and whose run counts gather the runs on the device.
+    The bytes after the last complete record come back with the outputs
+    (SegmentScan.tail)."""
     dev = data.device
     cuda = dev.type == "cuda"
     n_regions = -(-(end - start) // REGION)
@@ -246,6 +259,10 @@ def run_steps(data, start, end, n_ref, skip_mask, req_mask, read_filter,
         h.copy_(t, non_blocking=cuda)
         return h
 
+    def wait():
+        if cuda:
+            torch.cuda.current_stream(dev).synchronize()
+
     use, mapq, alen, apct, ident = filter_fields(read_filter)
     args.data = data.data_ptr()
     args.start, args.end, args.n_regions = start, end, n_regions
@@ -262,10 +279,9 @@ def run_steps(data, start, end, n_ref, skip_mask, req_mask, read_filter,
         buf(name, n_regions, dtype)
     stitch = buf("stitch", STITCH_WORDS, torch.int64)
     if n_regions:
-        with timed("speculate"):
-            launch(0, args)
-        with timed("stitch"):
-            launch(1, args)
+        for step in range(3):  # speculate, the stitch's check and walk
+            with timed(STEPS[step]):
+                launch(step, args)
         stitch_h = stitch.cpu().numpy()
     else:
         stitch_h = np.array([0, start, 0, STOP_END, 0, 0, 0, 0], np.int64)
@@ -278,36 +294,38 @@ def run_steps(data, start, end, n_ref, skip_mask, req_mask, read_filter,
     for name, dtype in (("nm", torch.int64), ("ind", torch.int64),
                         ("idv", torch.float64)):
         buf(name, n, dtype)
-    with timed("analyse"):
-        if n:
-            launch(2, args)
+    n_chunks = -(-n // CHUNK)
+    runs = buf("runs", n_chunks * CHUNK * RUN_WORDS, torch.int64)
+    chunks = buf("chunks", n_chunks * CHUNK_WORDS, torch.int64)
+    for step in (3, 4):  # analyse, fold
+        with timed(STEPS[step]):
+            if n:
+                launch(step, args)
     with timed("block_scan"):
         incl = torch.cumsum(nblk, 0)
         blk_off = incl - nblk
     keep.append(blk_off)
     args.blk_off = blk_off.data_ptr() if n else 0
-    n_blocks = int(incl[-1]) if n else 0
+    sizes = to_host(torch.cat([incl[-1:], chunks]))
+    wait()
+    n_blocks = int(sizes[0]) if n else 0
+    chunks_h = sizes[int(n > 0):].numpy().reshape(n_chunks, CHUNK_WORDS)
     btid = buf("btid", n_blocks, torch.int32)
     bstart = buf("bstart", n_blocks, torch.int32)
     bend = buf("bend", n_blocks, torch.int32)
-    n_chunks = -(-n // CHUNK)
-    runs = buf("runs", n_chunks * CHUNK * RUN_WORDS, torch.int64)
-    chunks = buf("chunks", n_chunks * CHUNK_WORDS, torch.int64)
-    with timed("emit_fold"):
+    with timed("emit"):
         if n:
-            launch(3, args)
-    chunks_h = chunks.cpu().numpy().reshape(n_chunks, CHUNK_WORDS)
-    counts = chunks_h[:, 6]
-    idx = np.concatenate([np.arange(c * CHUNK, c * CHUNK + k, dtype=np.int64)
-                          for c, k in enumerate(counts)] or
-                         [np.zeros(0, np.int64)])
-    idx = torch.from_numpy(idx).to(dev)
+            launch(5, args)
     with timed("d2h"):
-        outs = [to_host(t) for t in (btid, bstart, bend,
-                                     runs.view(-1, RUN_WORDS)[idx],
+        # chunk c's runs lie from its first record's slot: gathered on the
+        # device in one copy, by the chunk words' run counts
+        slots = runs.view(-1, RUN_WORDS)
+        kept = torch.cat([slots[c * CHUNK:c * CHUNK + int(k)]
+                          for c, k in enumerate(chunks_h[:, 6])]) \
+            if n_chunks else slots
+        outs = [to_host(t) for t in (btid, bstart, bend, kept,
                                      data[int(stitch_h[1]):end])]
-    if cuda:
-        torch.cuda.current_stream(dev).synchronize()
+    wait()
     if ms is not None:
         ms = {k: a.elapsed_time(b) for k, (a, b) in ms.items()}
     return SegmentScan(outs[0].numpy(), outs[1].numpy(), outs[2].numpy(),

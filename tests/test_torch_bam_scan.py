@@ -6,8 +6,9 @@ against the host scan, the port's native.stats_scan (ct_stats_scan), and
 against the JAX package's coverm_tpu.io.native.stats_scan:
 
 - the kernels' source built for the host by g++ (bam_scan_host: each
-  step region by region and record by record, through the kernels' own
-  functions), driven by the wrapper's own step sequence (run_steps);
+  step through the kernels' own functions, a block's threads one after
+  another and its scans as loops), driven by the wrapper's own step
+  sequence (run_steps);
 - the plain version (bam_scan_reference), which the wrapper takes for a
   CPU tensor.
 
@@ -27,7 +28,14 @@ stitch: records across every 64 KiB region boundary, records longer than
 a region (long reads, a CIGAR of 20,000 operations), quality and aux
 bytes forged into plausible headers, a truncated last record, a zero
 block_size, block_size < 33, unsorted input, NM missing, tid out of range
-and a corrupt l_read_name.
+and a corrupt l_read_name; for the fold's block scans and float64
+chains, a chunk whose every counted record starts a run, errors at the
+first and last record of a chunk and at records 32,767 and 32,768, a
+chunk with no counted record, and identity terms of +0.0 and below zero
+(whose runs' words must also equal the plain fold's); for the stitch's
+parallel check, headers forged so that it stops at region 1, in the
+middle, at the last region and at several regions apart (where its walk
+must start).
 
 A whole `contig -b` through the card route with a CPU stand-in for the
 card slot (SegmentInflater on the CPU, whose tensors send the scan to the
@@ -132,6 +140,88 @@ def _join(recs):
     return np.frombuffer(b"".join(recs), np.uint8).copy()
 
 
+def small(tid, pos, **kw):
+    """A short record: 10 bases, one CIGAR operation (61 bytes)."""
+    return record(tid, pos, cigar=((0, 10),), l_seq=10, name=b"s", **kw)
+
+
+def every_record_a_run(n=33000):
+    """More than a chunk of records whose every counted record starts a
+    run: the tids cycle 0, 5, 4, ... (unsorted), every seventh record
+    unmapped and every eleventh secondary (not counted)."""
+    out = []
+    for j in range(n):
+        flag = 4 if j % 7 == 3 else 256 if j % 11 == 5 else 0
+        out.append(small((j * 5) % N_REF, j, flag=flag, nm=j % 3))
+    return out
+
+
+def error_at(k, n):
+    """n sorted short records, record k with a corrupt l_read_name (an
+    error the filter cannot drop)."""
+    return [small(j * N_REF // n, j, l_read_name=250) if j == k
+            else small(j * N_REF // n, j, nm=j % 2) for j in range(n)]
+
+
+def uncounted_chunk():
+    """A chunk of counted records, then a whole chunk of unmapped and
+    secondary ones (no run), then counted ones again."""
+    head = [small(j * 3 // S.CHUNK, j, nm=0) for j in range(S.CHUNK)]
+    gap = [small(-1, -1, flag=4) if j % 2 else small(3, j, flag=256)
+           for j in range(S.CHUNK)]
+    return head + gap + [small(4, j, nm=1) for j in range(300)]
+
+
+def identities_at_zero():
+    """Runs whose identity terms are +0.0 (NM equal to the aligned
+    length) or below zero (NM above it), mixed with others: a run of
+    +0.0 terms only, one where they cancel to 0.0, and NM missing mixed
+    in."""
+    out = [small(0, j, nm=10) for j in range(700)]
+    for j in range(900):  # +0.2 and -0.2, then NM 10 (a +0.0 term)
+        out.append(small(1, j, nm=(8, 12, 10)[j % 3]))
+    for j in range(1300):
+        out.append(small(2, j, nm=None if j % 9 == 4 else j % 4))
+    return out
+
+
+def forged_at(targets, n_regions=12):
+    """Sorted records over n_regions 64 KiB regions, where a record just
+    before each region of `targets` spans its boundary, its quality
+    bytes holding two whole plausible records just past it: those
+    regions' speculation starts on a false header whose chain never
+    meets the true one, so the stitch's check cannot settle them."""
+    fake = record(1, 5, 0, ((0, 40),), 40, name=b"fake")
+    qual = b"\x1e" * 4 + fake * 2 + b"\x1e" * 20
+    out, size, j = [], 0, 0
+
+    def add(rec):
+        nonlocal size, j
+        out.append(rec)
+        size += len(rec)
+        j += 1
+
+    def plain(extra=-1):  # extra >= 0: a Z tag of 4 + extra bytes
+        return record(j * N_REF // 6000, j, 0, ((0, 60),), 60, nm=j % 3,
+                      aux=b"XZZ" + b"a" * extra + b"\0" if extra >= 0
+                      else b"")
+    for b in sorted(targets):
+        forger = record(j * N_REF // 6000, j, 0, ((0, len(qual)),),
+                        len(qual), qual=qual, name=b"forge")
+        q_off = len(forger) - len(qual) - 4  # its quality's first byte
+        at = b * S.REGION - q_off - 2  # the boundary 2 bytes into it
+        while at - size >= 2 * len(plain()) + 8:
+            add(plain())
+        pad = at - size - len(plain()) - 4  # a Z tag's 4 bytes and more
+        assert pad >= 0
+        add(plain(pad))
+        assert size == at
+        add(forger)
+    while size < (n_regions - 1) * S.REGION + S.REGION // 2:
+        add(plain())
+    return out
+
+
 STREAMS = {
     "sorted": lambda: _join(sorted_stream(3000, 1)),
     "forged": lambda: _join(forged_stream(1500, 2)),
@@ -155,7 +245,23 @@ STREAMS = {
     "bad_aux_type": lambda: _join(
         sorted_stream(300, 15) + [record(5, 2, nm=None,
                                          aux=b"XXq\x01NMC\x01")]),
+    # the fold's edges
+    "every_record_a_run": lambda: _join(every_record_a_run()),
+    "error_at_record_0": lambda: _join(error_at(0, 2000)),
+    "error_at_the_last_record": lambda: _join(error_at(1999, 2000)),
+    "error_at_record_32767": lambda: _join(error_at(32767, 33000)),
+    "error_at_record_32768": lambda: _join(error_at(32768, 33000)),
+    "uncounted_chunk": lambda: _join(uncounted_chunk()),
+    "identities_at_zero": lambda: _join(identities_at_zero()),
+    # the stitch's walk, from the first region its check cannot settle
+    "walk_from_region_1": lambda: _join(forged_at([1])),
+    "walk_from_the_middle": lambda: _join(forged_at([6])),
+    "walk_from_the_last_region": lambda: _join(forged_at([11])),
+    "walk_from_several_regions": lambda: _join(forged_at([2, 5, 9])),
 }
+FORGED = {"walk_from_region_1": [1], "walk_from_the_middle": [6],
+          "walk_from_the_last_region": [11],
+          "walk_from_several_regions": [2, 5, 9]}
 
 
 # ---- the three scans, as one outcome each
@@ -275,6 +381,63 @@ def test_false_candidates_cost_time_not_answers(host_kernels):
     data = STREAMS["sorted"]()
     _, kernels, _ = scans(data, 0, data.size, N_REF, host_kernels)
     assert kernels.regions_walked <= 1
+
+
+@pytest.mark.parametrize("name", ["sorted"] + sorted(FORGED))
+def test_the_stitch_walks_from_the_first_region_it_cannot_settle(
+        host_kernels, name):
+    """A false header at the start of a region's speculation stops the
+    stitch's parallel check there (F, stitch word 6): the walk starts at
+    F, walks each forged region again and goes on in order to the
+    chain's last region, and the outputs stay the host scan's (test
+    above). On the plain stream the check settles every region."""
+    data = STREAMS[name]()
+    targets = FORGED.get(name, [])
+    _, kernels, plain = scans(data, 0, data.size, N_REF, host_kernels)
+    assert kernels.regions_walked == plain.regions_walked == len(targets)
+    if not targets:
+        assert kernels.stitch[6] == kernels.regions_in_sequence == 0
+        return
+    last = (data.size - 1) // S.REGION
+    assert kernels.stitch[6] == targets[0]
+    assert kernels.regions_in_sequence == last - targets[0] + 1
+
+
+FOLD_STREAMS = ["every_record_a_run", "error_at_record_0",
+                "error_at_the_last_record", "error_at_record_32767",
+                "error_at_record_32768", "uncounted_chunk",
+                "identities_at_zero"]
+
+
+@pytest.mark.parametrize("name", FOLD_STREAMS)
+def test_fold_edges_equal_the_plain_fold(host_kernels, name):
+    """The fold's block scans and float64 chains (the kernels' host
+    build) against the plain version's record-by-record fold, word for
+    word (the runs, their float64 sums as bits, and the chunk words), and
+    the edge each stream is built to reach; the host scan's outcome is
+    held in test_streams_equal_the_host_scan."""
+    data = STREAMS[name]()
+    _, kernels, plain = scans(data, 0, data.size, N_REF, host_kernels)
+    np.testing.assert_array_equal(kernels.runs, plain.runs)
+    np.testing.assert_array_equal(kernels.chunks, plain.chunks)
+    c = kernels.chunks
+    if name == "every_record_a_run":
+        counted = sum(1 for j in range(S.CHUNK) if j % 7 != 3 and j % 11 != 5)
+        assert c.shape[0] == 2 and c[0, 6] == counted and c[0, 2] == 0
+    elif name.startswith("error_at"):
+        k = 1999 if name.endswith("last_record") else int(name.split("_")[-1])
+        assert c[k >> S.CHUNK_SHIFT, 5] == (k & (S.CHUNK - 1)) + 1
+        assert not c[:k >> S.CHUNK_SHIFT, 5].any()
+        if k == 0:
+            assert c[0, 6] == 0 and c[0, 0] == 1  # the error's primary
+    elif name == "uncounted_chunk":
+        assert list(c[1, [0, 3, 4, 6]]) == [S.CHUNK // 2, -1, -1, 0]
+        assert c[0, 6] == 3 and c[2, 6] == 1
+    else:
+        assert c[0, 1] == sum(1 for j in range(1300) if j % 9 == 4)
+        # +0.0 terms alone, and terms that cancel: +0.0, never -0.0
+        assert (kernels.runs[:2, 7:] == 0).all()
+        assert kernels.runs[:2, 0].tolist() == [0, 1]
 
 
 def _bytes_read_by_hand(data, start, end):
@@ -521,6 +684,12 @@ def test_cuda_kernels_equal_plain_and_host(tmp_path):
         pytest.skip("needs an NVIDIA card")
     from coverm_tpu_torch.synth import write_sorted_bam
     dev = torch.device("cuda")
+    for name, targets in FORGED.items():  # the stitch's check on the card
+        data = STREAMS[name]()
+        sc = S.scan_segment(torch.from_numpy(data).to(dev), 0, data.size,
+                            N_REF, SKIP, REQ)
+        assert sc.stitch[6] == targets[0]
+        assert sc.regions_walked == len(targets)
     cases = [(STREAMS[name](), 0, N_REF) for name in sorted(STREAMS)]
     bam = str(tmp_path / "bench.bam")
     write_sorted_bam(bam, n_contigs=4, contig_len=300_000)
@@ -542,8 +711,9 @@ def test_cuda_kernels_equal_plain_and_host(tmp_path):
             assert_same(outcome_scan(sc, n_ref), want)
             assert_same(outcome_scan(plain, n_ref), want)
             np.testing.assert_array_equal(sc.stitch[:4], plain.stitch[:4])
-            assert set(sc.timing) == {"speculate", "stitch", "analyse",
-                                      "block_scan", "emit_fold", "d2h"}
+            np.testing.assert_array_equal(sc.runs, plain.runs)
+            np.testing.assert_array_equal(sc.chunks, plain.chunks)
+            assert set(sc.timing) == {*S.STEPS, "block_scan", "d2h"}
             np.testing.assert_array_equal(
                 sc.tail, data[sc.end_off:data.size])
 
