@@ -42,6 +42,9 @@ Phases, in order; any failure exits non-zero:
   7. genes: `contig --gff genes.gff -b bench.bam` on phase 4's BAM, a
      900 bp gene every 1,000 bp (32,000 genes, every tenth overlapping
      the next, a few on contigs the header lacks): TSV equal to the CPU's;
+     the classic reader inflates and parses on the card, one inflate and
+     one parse launch a segment of its own, and the host's inflate and
+     parse are never called (the streamed source's header probe apart);
   8. `genome --sharded -s '~'` over two read-name-sorted paired shard
      BAMs (8 contigs x 100 kbp at 20x): TSV equal to the CPU's;
   9. `genome -f g*.fna --dereplicate --dereplication-cluster-method
@@ -54,8 +57,10 @@ Phases, in order; any failure exits non-zero:
      and a torch.profiler trace in the directory that names the kernel
      (`sweep_scan_kernel`);
  11. `filter --min-read-percent-identity 99` on phase 5's BAM (its
-     standard error line must show some reads kept and some dropped),
-     then `contig -b filtered.bam` on the card: TSV equal to the CPU's;
+     standard error line must show some reads kept and some dropped;
+     the BAM inflated and parsed on the card, a launch of each a segment,
+     no host inflate or parse), then `contig -b filtered.bam` on the
+     card: TSV equal to the CPU's;
  12. the dense engine, `ops.depth.compute_depth_stats`, on the card over
      phase 4's blocks (32 x 1 Mbp, ~4.27 M reads): every int64 field and
      the histogram equal to the numpy oracle; timed with CUDA events,
@@ -88,8 +93,10 @@ Phases, in order; any failure exits non-zero:
      32 MiB segments: the fused scan, with the filter in its native
      record loop, driven as phases 4-11 are and without one record
      through the classic reader; then COVERM_TPU_FUSED=0 (the classic
-     reader, every record parsed once, then the read filter). The two
-     TSVs must be equal; the two pass times are printed.
+     reader, every record parsed once on the card, one inflate and one
+     parse launch a segment and no host inflate or parse, then the read
+     filter). The two TSVs must be equal; the two pass times are
+     printed.
 
  18. validate (`python -m coverm_tpu_torch.scripts.validate`, through its
      main) over phase 4's BAM (the fused route), phase 5's genome BAM
@@ -137,13 +144,23 @@ Phases, in order; any failure exits non-zero:
      around each call, and by step: the stitch's parallel check and its
      walk apart, the fold apart from the emit) beside its bound and the
      plain version's, and the regions the stitch walked in sequence.
+ 24. the record parse (ops/bam_scan.parse_segment, the classic reader's
+     columns) column for column against the host's parse_records_full
+     and its plain version on the CPU tests' streams
+     (tests/test_torch_bam_parse.py), refused ones with the host's
+     exception and message, six of them also written as BAMs and read
+     through the reader's card route against its host route; then on
+     phase 4's BAM segment by segment as the reader hands them over (the
+     slot after the carry, the header parsed on the host): its ms (CUDA
+     events around each call, and by step) beside its bound, the plain
+     version's and the copy back over the link.
 
 Phases 4 to 11 and 17 each run their command once to warm up (recording the
 kernel's inputs and the engine's batches), then once with the kernels'
 launch counts set to 0 just before and read just after: K1's must equal
-the number of engine batches and be above 0, the inflate's and the
-record scan's the number of BGZF segments of a streamed BAM (phases 4
-and 17), 0 on the other routes. They run with COVERM_TPU_MESH=0,
+the number of engine batches and be above 0, the inflate's the number of BGZF segments of a streamed BAM (phases 4,
+7, 11 and 17), the record scan's and the parse's together the same (the
+fused scan's and the classic reader's), 0 on the other routes. They run with COVERM_TPU_MESH=0,
 so that on a machine with several cards they still take the single-card
 engine; phases 13-16 drive the multi-device engines. Mapping from reads and `makedb`
 are not driven here: they need a mapper binary, which this script does
@@ -152,8 +169,8 @@ tests hold all three against the JAX package (with tests/fake_mapper.py
 and fake skani and fastANI executables).
 
 Prints the card line, then one {"kernels": [...]} JSON line (K1, the
-inflate kernel and the record scan, each with the launch count of every
-path, and with two
+inflate kernel, the record scan and the record parse, each with the
+launch count of every path, and with two
 or more cards phase 16's wall seconds under "multi_card_wall_s"), then the {"ok": true, "device":
 {...}} JSON line last.
 """
@@ -204,10 +221,15 @@ KERNEL_OPS_PER_EVENT = sum((
 
 
 # the inflate kernel's launches of each path driven, by drive()'s label,
-# the record scan's, and the host's stats_scan calls
+# the record scan's, the record parse's, the host's stats_scan calls, and
+# the host's inflates (native.bgzf_inflate_blocks, the streamed source's
+# header probe in FusedScanStream.open apart) and parses
+# (native.parse_records_full)
 INFLATE_LAUNCHES = {}
 SCAN_LAUNCHES = {}
+PARSE_LAUNCHES = {}
 HOST_SCANS = {}
+HOST_INGEST = {}
 # the adversarial BGZF streams of phase 22: (zlib level, strategy)
 INFLATE_STREAMS = [(0, 0), (1, 0), (6, 0), (9, 0), (6, 4), (6, 2), (6, 3)]
 PCIE_GEN5_X16_BYTES_PER_S = 63e9  # one direction, published
@@ -239,6 +261,84 @@ def recording(module, name, store, copy):
         yield
     finally:
         setattr(module, name, orig)
+
+
+@contextlib.contextmanager
+def host_ingest(store):
+    """Counts into store ("inflate", "parse") the host's inflates of BGZF
+    segments (native.bgzf_inflate_blocks, but for the header probe of
+    io/fastscan.FusedScanStream.open, which every streamed source makes)
+    and its record parses (native.parse_records_full)."""
+    from coverm_tpu_torch.io import fastscan, native
+    store.update(inflate=0, parse=0)
+    probing = threading.local()
+    inflate, parse = native.bgzf_inflate_blocks, native.parse_records_full
+    probe = fastscan.FusedScanStream._open_bgzf_plan
+
+    def inflate_counted(*args, **kwargs):
+        if not getattr(probing, "on", False):
+            store["inflate"] += 1
+        return inflate(*args, **kwargs)
+
+    def parse_counted(*args, **kwargs):
+        store["parse"] += 1
+        return parse(*args, **kwargs)
+
+    def probe_marked(self):
+        probing.on = True
+        try:
+            return probe(self)
+        finally:
+            probing.on = False
+    native.bgzf_inflate_blocks = inflate_counted
+    native.parse_records_full = parse_counted
+    fastscan.FusedScanStream._open_bgzf_plan = probe_marked
+    try:
+        yield store
+    finally:
+        native.bgzf_inflate_blocks, native.parse_records_full = inflate, parse
+        fastscan.FusedScanStream._open_bgzf_plan = probe
+
+
+@contextlib.contextmanager
+def ingest_counts(label):
+    """The card's ingest launches and the host's ingest calls of what the
+    block runs, by `label`: the counts set to 0 just before and read just
+    after. Where the card inflated, every inflated segment must be
+    scanned or parsed on the card once, and the host must have inflated,
+    scanned and parsed nothing."""
+    from coverm_tpu_torch.io import native
+    from coverm_tpu_torch.ops import bam_scan as S
+    from coverm_tpu_torch.ops import bgzf_inflate as B
+    host_scans, host = [], {}
+    B.bgzf_inflate_launches = 0
+    S.bam_scan_launches = S.bam_parse_launches = 0
+    with recording(native, "stats_scan", host_scans, lambda a, k: 1), \
+            host_ingest(host):
+        yield
+    INFLATE_LAUNCHES[label] = B.bgzf_inflate_launches
+    SCAN_LAUNCHES[label] = S.bam_scan_launches
+    PARSE_LAUNCHES[label] = S.bam_parse_launches
+    HOST_SCANS[label] = len(host_scans)
+    HOST_INGEST[label] = dict(host)
+    if SCAN_LAUNCHES[label] + PARSE_LAUNCHES[label] != \
+            INFLATE_LAUNCHES[label] or (INFLATE_LAUNCHES[label] and (
+                HOST_SCANS[label] or host["inflate"] or host["parse"])):
+        raise SystemExit(f"{label}: the record scan launched "
+                         f"{SCAN_LAUNCHES[label]} times and the parse "
+                         f"{PARSE_LAUNCHES[label]} over "
+                         f"{INFLATE_LAUNCHES[label]} inflated segments, the "
+                         f"host's stats_scan {HOST_SCANS[label]} times, its "
+                         f"inflate and parse {host}")
+
+
+def reader_segments(path, target_bytes):
+    """The number of segments that io/bam.BamStreamReader cuts `path`
+    into."""
+    from coverm_tpu_torch.io import native
+    from coverm_tpu_torch.io.fastscan import plan_segments
+    _, _, usz = native.bgzf_scan(np.memmap(path, np.uint8, mode="r"))
+    return len(plan_segments(usz, 0, target_bytes))
 
 
 def kernel_launches(store):
@@ -374,35 +474,20 @@ def drive(label, argv, work, dev, keep=False):
     bytes and the kernel's largest error, and (keep=True) the recorded
     launch inputs and batches."""
     import torch
-    from coverm_tpu_torch.io import native
-    from coverm_tpu_torch.ops import bam_scan as S
-    from coverm_tpu_torch.ops import bgzf_inflate as B
     from coverm_tpu_torch.ops import sweep_scan as K
     launches_in, batches = [], []
     with kernel_launches(launches_in), engine_batches(batches):
         run_cli(argv, os.path.join(work, f"{label}_warm.tsv"), dev)
     n_batches = sum(1 for b in batches if b[0].size)
-    host_scans = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K.sweep_scan_launches = 0
-    B.bgzf_inflate_launches = 0
-    S.bam_scan_launches = 0
     t0 = time.perf_counter()
-    with recording(native, "stats_scan", host_scans, lambda a, k: 1):
+    with ingest_counts(label):
         tsv = run_cli(argv, os.path.join(work, f"{label}_gpu.tsv"), dev)
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = K.sweep_scan_launches
-    INFLATE_LAUNCHES[label] = B.bgzf_inflate_launches
-    SCAN_LAUNCHES[label] = S.bam_scan_launches
-    HOST_SCANS[label] = len(host_scans)
-    if SCAN_LAUNCHES[label] != INFLATE_LAUNCHES[label] or \
-            (INFLATE_LAUNCHES[label] and HOST_SCANS[label]):
-        raise SystemExit(f"{label}: the record scan launched "
-                         f"{SCAN_LAUNCHES[label]} times over "
-                         f"{INFLATE_LAUNCHES[label]} inflated segments, the "
-                         f"host's stats_scan {HOST_SCANS[label]} times")
     peak = torch.cuda.max_memory_allocated()
     if launches <= 0:
         raise SystemExit(f"{label}: the path did not launch the sweep-scan "
@@ -412,9 +497,10 @@ def drive(label, argv, work, dev, keep=False):
                          f"its warm-up {len(launches_in)} over {n_batches} "
                          "engine batches")
     log(f"[{label}] {launches} kernel launches over {n_batches} engine "
-        f"batches, {INFLATE_LAUNCHES[label]} inflate and "
-        f"{SCAN_LAUNCHES[label]} record-scan launches, the host's "
-        f"stats_scan {HOST_SCANS[label]} times; {wall:.3f} s")
+        f"batches, {INFLATE_LAUNCHES[label]} inflate, "
+        f"{SCAN_LAUNCHES[label]} record-scan and {PARSE_LAUNCHES[label]} "
+        f"parse launches, the host's stats_scan {HOST_SCANS[label]} times, "
+        f"its inflate and parse {HOST_INGEST[label]}; {wall:.3f} s")
     err = max(check_kernel(f"{label} launch {i}", ins)
               for i, ins in enumerate(launches_in))
     if keep:
@@ -488,19 +574,25 @@ def phase_profile(gargv, g_tsv, work, dev):
 
 
 def phase_filter(gbam, work, dev):
-    """Phase 11: filter on the host, then contig over its output on the
-    card. Returns the kernel's launches and largest error."""
+    """Phase 11: filter (its BAM inflated and parsed on the card, a
+    launch of each a segment), then contig over its output on the card.
+    Returns the kernel's launches and largest error."""
     import io
     from coverm_tpu_torch.cli import main as cli_main
     out = os.path.join(work, "filtered.bam")
     said = io.StringIO()
-    with contextlib.redirect_stderr(said):
+    with contextlib.redirect_stderr(said), ingest_counts("filter"):
         rc = cli_main(["filter", "-b", gbam, "-o", out,
                        "--min-read-percent-identity", "99"])
     line = said.getvalue().strip().splitlines()[-1]
     kept, total = (int(w) for w in line.split() if w.isdigit())
     if rc != 0 or not 0 < kept < total:
         raise SystemExit(f"filter: {line!r}")
+    n_seg = reader_segments(gbam, 1 << 28)
+    if not INFLATE_LAUNCHES["filter"] == PARSE_LAUNCHES["filter"] == n_seg:
+        raise SystemExit(f"filter: inflated {INFLATE_LAUNCHES['filter']} "
+                         f"and parsed {PARSE_LAUNCHES['filter']} segments "
+                         f"on the card of the reader's {n_seg}")
     argv = ["contig", "-b", out, "-m", *METHODS]
     tsv, _, launches, _, err = drive("filter_contig", argv, work, dev)
     same_as_cpu("filter_contig", argv, tsv, work, 8)
@@ -587,19 +679,26 @@ def counted(fn):
 @contextlib.contextmanager
 def parsed_records(store):
     """Appends the record count of each parse of the classic record
-    reader (io/bam.parse_records) to store."""
+    reader to store: on the host (io/bam.parse_records) or on the card
+    (ops/bam_scan.parse_segment)."""
     from coverm_tpu_torch.io import bam as B
-    orig = B.parse_records
+    from coverm_tpu_torch.ops import bam_scan as S
+    orig, orig_card = B.parse_records, S.parse_segment
 
     def parse(*args, **kwargs):
         batch, end = orig(*args, **kwargs)
         store.append(batch.n_records)
         return batch, end
-    B.parse_records = parse
+
+    def parse_card(*args, **kwargs):
+        ps = orig_card(*args, **kwargs)
+        store.append(ps.n_records)
+        return ps
+    B.parse_records, S.parse_segment = parse, parse_card
     try:
         yield
     finally:
-        B.parse_records = orig
+        B.parse_records, S.parse_segment = orig, orig_card
 
 
 def phase_metabat(work, dev, card):
@@ -617,7 +716,7 @@ def phase_metabat(work, dev, card):
         with parsed_records(fused_parsed):
             tsv, wall, launches, _, err = drive("metabat", argv, work, dev)
         os.environ["COVERM_TPU_FUSED"] = "0"
-        with parsed_records(classic_parsed):
+        with parsed_records(classic_parsed), ingest_counts("metabat_classic"):
             t0 = time.perf_counter()
             classic = run_cli(argv, os.path.join(work, "metabat_classic.tsv"),
                               dev)
@@ -633,14 +732,22 @@ def phase_metabat(work, dev, card):
         raise SystemExit(f"metabat: the classic reader parsed "
                          f"{sum(classic_parsed)} records of {tids.size} in "
                          f"{len(classic_parsed)} segments")
+    n_seg = reader_segments(path, METABAT_SEGMENT_BYTES)
+    if not INFLATE_LAUNCHES["metabat_classic"] == \
+            PARSE_LAUNCHES["metabat_classic"] == len(classic_parsed) == n_seg:
+        raise SystemExit(f"metabat: COVERM_TPU_FUSED=0 inflated "
+                         f"{INFLATE_LAUNCHES['metabat_classic']} and parsed "
+                         f"{PARSE_LAUNCHES['metabat_classic']} segments on "
+                         f"the card of the reader's {n_seg}")
     if tsv != classic:
         raise SystemExit("metabat: the fused filtered TSV differs from "
                          "COVERM_TPU_FUSED=0's")
     if tsv.count(b"\n") != 33:
         raise SystemExit("metabat TSV does not have 32 rows")
     log(f"[metabat] {tids.size} reads over {len(classic_parsed)} segments: "
-        f"fused filtered scan {wall:.3f} s, classic reader and read filter "
-        f"{classic_wall:.3f} s, TSVs equal; {card}")
+        f"fused filtered scan {wall:.3f} s, classic reader (inflated and "
+        f"parsed on the card) and read filter {classic_wall:.3f} s, TSVs "
+        f"equal; {card}")
     return launches, err, wall, classic_wall
 
 
@@ -1638,6 +1745,229 @@ def phase_scan(bam, metabat_bam, dev, card):
             "streams": n_streams}
 
 
+def parse_outcome(fn):
+    """A parse's outcome, as the CPU tests take it
+    (tests/test_torch_bam_parse.outcome_parse)."""
+    from test_torch_bam_parse import outcome_parse
+    return outcome_parse(fn)
+
+
+def parse_same(label, got, want):
+    """Raise unless two parse outcomes are equal, column for column and
+    type for type, or the same exception and message."""
+    from test_torch_bam_parse import assert_same
+    try:
+        assert_same(got, want)
+    except AssertionError as e:
+        raise SystemExit(f"record parse: {label} differs: {e}") from None
+
+
+def parse_err(a, b):
+    """The largest absolute difference of two parses' integer columns
+    (the hash's bits as int64); 2**63 when their shapes differ."""
+    err = 0
+    for k, v in a.columns.items():
+        w = b.columns[k]
+        if v.shape != w.shape or v.dtype != w.dtype:
+            return float(1 << 63)
+        x, y = v.view(np.int64) if v.dtype == np.uint64 else v, \
+            w.view(np.int64) if w.dtype == np.uint64 else w
+        if x.size:
+            err = max(err, int(np.abs(x.astype(np.int64)
+                                      - y.astype(np.int64)).max()))
+    return float(err)
+
+
+def bam_file(path, records, n_ref, block=4000):
+    """A BGZF BAM of raw record bytes under a header of n_ref contigs."""
+    from coverm_tpu_torch.io import bgzf
+    from coverm_tpu_torch.io.sam import sam_text_to_bam_data
+    head = sam_text_to_bam_data(iter(
+        [f"@SQ\tSN:t{i}\tLN:1000000" for i in range(n_ref)]))
+    data = bytes(head) + bytes(records)
+    with open(path, "wb") as f:
+        for o in range(0, len(data), block):
+            f.write(bgzf.compress_block(data[o:o + block], 1))
+        f.write(bgzf.BGZF_EOF)
+    return path
+
+
+def phase_parse(bam, work, dev, card, d2h_gb_per_s):
+    """Phase 24: the record parse's kernels against the host's parse
+    (io/bam.parse_records: parse_records_full) and their plain version,
+    on the CPU tests' streams (tests/test_torch_bam_parse.py), six
+    corrupt ones also written as BAMs and read through the reader's card
+    route against its host route; then on phase 4's BAM segment by
+    segment as the reader hands them over (the inflate's card slot after
+    the carry, the header parsed on the host from the first segment):
+    every column against the host parse and the plain version, timed by
+    step. Returns the kernels-line entry's measured numbers."""
+    import torch
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    import test_torch_bam_parse as T
+    from coverm_tpu_torch.io import bam as IB
+    from coverm_tpu_torch.io import native
+    from coverm_tpu_torch.io.fastscan import _CARD_HEADROOM, plan_segments
+    from coverm_tpu_torch.ops import bam_scan as S
+    from coverm_tpu_torch.ops import bgzf_inflate as B
+
+    err, n_streams, refused = 0.0, 0, []
+    for name in sorted(T.STREAMS):
+        data = T.STREAMS[name]()
+        want = T.outcome_host(data, 0, data.size)
+        on_card = torch.from_numpy(data).to(dev)
+        got = parse_outcome(lambda: S.parse_segment(on_card, 0, data.size,
+                                                    T.N_REF))
+        plain = parse_outcome(lambda: S.bam_parse_reference(
+            torch.from_numpy(data), 0, data.size, T.N_REF))
+        parse_same(f"{name} (kernels)", got, want)
+        parse_same(f"{name} (plain)", plain, want)
+        if isinstance(want[0], str):
+            refused.append(name)
+        else:
+            err = max(err, parse_err(S.ParsedSegment(got[0], got[1], None),
+                                     S.ParsedSegment(plain[0], plain[1],
+                                                     None)))
+        n_streams += 1
+    # corrupt records through the reader's card route: the host route's
+    # exception and message
+    for name in refused[:6]:
+        path = bam_file(os.path.join(work, f"bad_{name}.bam"),
+                        T.STREAMS[name](), T.N_REF)
+        said = []
+        for where in (dev, "cpu"):
+            try:
+                _, gen = IB.BamStreamReader(path, target_bytes=1 << 16,
+                                            device=where).read()
+                for _ in gen:
+                    pass
+                said.append(None)
+            except Exception as e:  # the class is part of the outcome
+                said.append((type(e).__name__, str(e)))
+        if said[0] is None or said[0] != said[1]:
+            raise SystemExit(f"record parse: {name} through the card route "
+                             f"gave {said[0]}, the host route {said[1]}")
+    # a corrupt BGZF block (phase 22's, a block type 3) through the
+    # reader's card route: the host route's error
+    from coverm_tpu_torch.synth import write_sorted_bam
+    small = os.path.join(work, "parse_small.bam")
+    write_sorted_bam(small, n_contigs=4, contig_len=100_000, seed=4)
+    data = np.fromfile(small, np.uint8)
+    off, _, _ = native.bgzf_scan(data)
+    data[off[off.size - 3] + 18] |= 0x06
+    bad = os.path.join(work, "parse_corrupt_block.bam")
+    data.tofile(bad)
+    said = []
+    for where in (dev, "cpu"):
+        try:
+            for _ in IB.BamStreamReader(bad, target_bytes=1 << 20,
+                                        device=where).read()[1]:
+                pass
+            said.append(None)
+        except IB.BamFormatError as e:
+            said.append(str(e))
+    if said[0] is None or said[0] != said[1]:
+        raise SystemExit(f"record parse: a corrupt block through the card "
+                         f"route gave {said[0]!r}, the host route "
+                         f"{said[1]!r}")
+    log(f"[parse] kernels equal parse_records_full and the plain version on "
+        f"{n_streams} streams ({len(refused)} refused with the host's "
+        f"message); {min(6, len(refused))} corrupt BAMs and a corrupt BGZF "
+        f"block raise the host route's error through the reader's card "
+        f"route")
+
+    # phase 4's BAM as the reader hands it over
+    mm = np.memmap(bam, np.uint8, mode="r")
+    off, csz, usz = native.bgzf_scan(mm)
+    segments = plan_segments(usz, 0, 1 << 28)
+    inf = B.SegmentInflater(bam, off, csz, usz, segments, _CARD_HEADROOM,
+                            dev)
+    rec = {"ms": 0.0, "step_ms": {}, "plain_ms": 0.0, "bytes": 0, "read": 0,
+           "written": 0, "records": 0, "blocks": 0, "back": 0,
+           "segments": 0, "launches": 0}
+    carry, n_ref = None, None
+    try:
+        inf.start(0)
+        for k in range(len(segments)):
+            if k + 1 < len(segments):
+                inf.start(k + 1)
+            slot, lo, hi = inf.take(k, carry)
+            torch.cuda.synchronize()
+            host = slot.cpu().numpy()
+            start = lo
+            if n_ref is None:
+                header, hdr = IB._parse_header(host[lo:hi])
+                n_ref, start = header.n_ref, lo + hdr
+            before = S.bam_parse_launches
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            ps = S.parse_segment(slot, start, hi, n_ref, timing=True,
+                                 base=lo, keep_bytes=True)
+            b.record()
+            b.synchronize()
+            rec["launches"] += S.bam_parse_launches - before
+            rec["ms"] += a.elapsed_time(b)
+            for key, v in ps.timing.items():
+                rec["step_ms"][key] = rec["step_ms"].get(key, 0.0) + v
+            want = T.outcome_host(host, start, hi)
+            if not isinstance(want[0], str):
+                want = ({**want[0], "rec_start": want[0]["rec_start"] - lo,
+                         "rec_end": want[0]["rec_end"] - lo},
+                        want[1] - lo)
+            parse_same(f"{bam} segment {k}", (ps.columns, ps.end_off), want)
+            if not np.array_equal(ps.data, host[lo:hi]):
+                raise SystemExit(f"record parse: segment {k}'s bytes came "
+                                 "back changed")
+            t0 = time.perf_counter()
+            p = S.bam_parse_reference(torch.from_numpy(host), start, hi,
+                                      n_ref, base=lo)
+            rec["plain_ms"] += (time.perf_counter() - t0) * 1e3
+            parse_same(f"{bam} segment {k} (plain)", (p.columns, p.end_off),
+                       want)
+            err = max(err, parse_err(ps, p))
+            rec["read"] += S.parse_bytes_read(torch.from_numpy(host), start,
+                                              hi, n_ref)
+            n_blocks = ps.columns["block_read"].size
+            rec["written"] += S.PARSE_RECORD_BYTES * ps.n_records \
+                + S.PARSE_BLOCK_BYTES * n_blocks
+            rec["back"] += S.PARSE_RECORD_BYTES * ps.n_records \
+                + S.PARSE_BLOCK_BYTES * n_blocks + (hi - lo)
+            rec["bytes"] += hi - start
+            rec["records"] += ps.n_records
+            rec["blocks"] += n_blocks
+            rec["segments"] += 1
+            carry = ps.data[ps.end_off:]
+            del slot
+    finally:
+        inf.close()
+    if rec["launches"] != rec["segments"]:
+        raise SystemExit(f"record parse: {rec['launches']} launches over "
+                         f"{rec['segments']} segments")
+    # the least time: the sectors that hold what the parse has to read
+    # (fixed fields, names, CIGARs, aux tags up to NM and AS), read once,
+    # and the columns and blocks written once; then the columns and the
+    # slot's bytes over the link at phase 22's measured d2h rate
+    bound_ms = (rec["read"] + rec["written"]) / H100_BYTES_PER_S * 1e3
+    link_ms = rec["back"] / (d2h_gb_per_s * 1e9) * 1e3
+    log(f"[parse] phase 4's BAM: {rec['segments']} segments, "
+        f"{rec['records']} records, {rec['blocks']} blocks, equal to "
+        f"parse_records_full and the plain version (max_abs_err {err}); "
+        f"kernels {rec['ms']:.3f} ms (steps {json.dumps(rec['step_ms'])}), "
+        f"plain version {rec['plain_ms']:.1f} ms; bound {bound_ms:.4f} ms "
+        f"(bytes: {rec['read']} read of {rec['bytes']} inflated, "
+        f"{rec['written']} written); {rec['back']} bytes back over the "
+        f"link, {link_ms:.3f} ms at {d2h_gb_per_s:.3f} GB/s; {card}")
+    return {"ms": rec["ms"], "step_ms": rec["step_ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": bound_ms,
+            "link_ms": link_ms, "max_abs_err": err, "bytes": rec["bytes"],
+            "bytes_read": rec["read"], "bytes_written": rec["written"],
+            "bytes_back": rec["back"], "records": rec["records"],
+            "blocks": rec["blocks"], "segments": rec["segments"],
+            "streams": n_streams, "refused_streams": len(refused)}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1813,6 +2143,11 @@ def main():
         tsv_gff, gff_wall, gff_launches, _, f_err = drive(
             "gff", fargv, work, dev)
         launches_by_path["gff"] = gff_launches
+        n_seg = reader_segments(bam, 1 << 28)
+        if not INFLATE_LAUNCHES["gff"] == PARSE_LAUNCHES["gff"] == n_seg:
+            raise SystemExit(f"gff: inflated {INFLATE_LAUNCHES['gff']} and "
+                             f"parsed {PARSE_LAUNCHES['gff']} segments on "
+                             f"the card of the reader's {n_seg}")
         same_as_cpu("gff", fargv, tsv_gff, work, n_genes)
         log(f"[gff] {n_genes} genes, {n_reads} reads: decode-inclusive "
             f"{n_reads / gff_wall:.0f} reads/s ({gff_wall:.3f} s), "
@@ -1937,6 +2272,11 @@ def main():
         t0 = time.perf_counter()
         scan = phase_scan(bam, os.path.join(work, "metabat.bam"), dev, card)
         phase_s["scan"] = time.perf_counter() - t0
+
+        # ---- 24. the record parse against the host's parse
+        t0 = time.perf_counter()
+        parse = phase_parse(bam, work, dev, card, inflate["d2h_gb_per_s"])
+        phase_s["parse"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"[phases] seconds: {json.dumps(phase_s)}")
@@ -2064,6 +2404,34 @@ def main():
         "metabat_step_ms": scan["metabat_step_ms"],
         "metabat_regions_in_sequence": scan["metabat_regions_in_sequence"],
         "adversarial_streams": scan["streams"],
+    }, {
+        "name": "bam_parse",
+        "route": "cuda",
+        "source": "coverm_tpu_torch/csrc/bam_scan.cu",
+        "replaces": "coverm_tpu_torch/native/bamdecode.cpp:220,306,338 (the "
+                    "host ct_walk_complete, ct_parse_phase1 and "
+                    "ct_parse_phase2; no TPU kernel parses records)",
+        "launches": PARSE_LAUNCHES["gff"],
+        "launches_by_path": dict(PARSE_LAUNCHES),
+        "host_inflate_and_parse_calls_by_path": dict(HOST_INGEST),
+        "max_abs_err": parse["max_abs_err"],
+        "ms": parse["ms"],
+        "step_ms": parse["step_ms"],
+        "plain_ms": parse["plain_ms"],
+        "bound_ms": parse["bound_ms"],
+        "bound_by": "bytes",
+        "link_ms": parse["link_ms"],
+        "library_ms": None,
+        "library_note": "none: no PyTorch call parses BAM records",
+        "inflated_bytes": parse["bytes"],
+        "bytes_read": parse["bytes_read"],
+        "bytes_written": parse["bytes_written"],
+        "bytes_back": parse["bytes_back"],
+        "records": parse["records"],
+        "blocks": parse["blocks"],
+        "segments": parse["segments"],
+        "adversarial_streams": parse["streams"],
+        "refused_streams": parse["refused_streams"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

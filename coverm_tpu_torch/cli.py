@@ -768,7 +768,9 @@ def _profiler(trace_dir, device):
 
 def main(argv=None, device=None):
     """The CLI. `device` (default: default_device(), so the card unless
-    COVERM_TPU_TORCH_DEVICE=cpu) is where the coverage engine runs."""
+    COVERM_TPU_TORCH_DEVICE=cpu) is where the coverage engine runs, and
+    where a streamed BGZF BAM's classic batches (`--gff`, pair filters,
+    COVERM_TPU_FUSED=0, `filter`, the shard merge) inflate and parse."""
     import sys
 
     argv = list(sys.argv[1:] if argv is None else argv)
@@ -807,7 +809,7 @@ def main(argv=None, device=None):
     from .device import resolve_device
     from .io.bam import BamFormatError
     from .scan import BamSortingError, MissingNMTagError
-    if args.subcommand in ("contig", "genome"):
+    if args.subcommand in ("contig", "genome", "filter"):
         try:
             device = resolve_device(device)
         except (RuntimeError, ValueError) as e:
@@ -822,7 +824,7 @@ def main(argv=None, device=None):
                     return run(args, device)
             return run(args, device)
         if args.subcommand == "filter":
-            return commands.run_filter(args)
+            return commands.run_filter(args, device)
         if args.subcommand == "make":  # mapping and BAM writing only
             return commands.run_make(args)
         if args.subcommand == "cluster":

@@ -29,8 +29,8 @@ class FilteredBamFileSource(BamFileSource):
     the classic batches through filter_payload."""
 
     def __init__(self, path, params: FilterParams, flag_filters: FlagFilter,
-                 stoit_name=None):
-        super().__init__(path, stoit_name)
+                 stoit_name=None, device=None):
+        super().__init__(path, stoit_name, device)
         self.params = params
         self.flag_filters = flag_filters
         self.num_primary_override = None
@@ -47,7 +47,7 @@ class FilteredBamFileSource(BamFileSource):
                                       self.flag_filters)
 
 
-def _build_sources(args):
+def _build_sources(args, device=None):
     fp = filter_params_from_args(args)
     ff = flag_filter_from_args(args)
     if getattr(args, "methods", None) and "metabat" in args.methods:
@@ -58,19 +58,23 @@ def _build_sources(args):
         ff.include_secondary = True
 
     # every source hands its records to modes/genes, which scan them on
-    # the device the command was given
+    # the device the command was given; a streamed BAM's classic batches
+    # inflate and parse on it too
     if args.bam_files:
         if getattr(args, "sharded", False):
             from .shard import ShardedBamSource
             sources = [ShardedBamSource(args.bam_files,
-                                        _genome_exclusion_of(args))]
+                                        _genome_exclusion_of(args),
+                                        device=device)]
             if fp.doing_filtering():
                 from .mapping.pipeline import FilteredMappedSource
                 sources = [FilteredMappedSource(s, fp, ff) for s in sources]
         elif fp.doing_filtering():
-            sources = [FilteredBamFileSource(p, fp, ff) for p in args.bam_files]
+            sources = [FilteredBamFileSource(p, fp, ff, device=device)
+                       for p in args.bam_files]
         else:
-            sources = [BamFileSource(p) for p in args.bam_files]
+            sources = [BamFileSource(p, device=device)
+                       for p in args.bam_files]
         return sources, ff
     # mapping from raw reads
     if getattr(args, "sharded", False):
@@ -144,7 +148,7 @@ def run_contig(args, device=None):
     if args.methods == ["strobealign-aemb"]:
         from .mapping.aemb import strobealign_aemb_coverage
         return strobealign_aemb_coverage(args, et, stream)
-    sources, ff = _build_sources(args)
+    sources, ff = _build_sources(args, device)
     if args.gff:
         from .genes import GeneDefinitions, gene_coverage
         defs = GeneDefinitions.read_gff(args.gff, args.gff_feature_type)
@@ -259,7 +263,7 @@ def run_genome(args, device=None):
     stream = _output_stream(args)
     et = EstimatorsAndTaker(args, stream)
     et.print_headers("Gene\tContig\tGenome" if args.gff else "Genome", stream)
-    sources, ff = _build_sources(args)
+    sources, ff = _build_sources(args, device)
 
     if args.gff:
         # genome namer precedence mirrors run_genome (coverm.rs:1554-1580)
@@ -298,9 +302,10 @@ def run_genome(args, device=None):
     return 0
 
 
-def run_filter(args):
+def run_filter(args, device=None):
     """`coverm filter`: rewrite BAMs keeping only passing alignments
-    (coverm.rs:408-472)."""
+    (coverm.rs:408-472), their records inflated and parsed on `device`
+    (device.resolve_device: None is the card)."""
     if len(args.bam_files) != len(args.output_bam_files):
         raise SystemExit(
             "The number of input BAM files must be the same as the number "
@@ -347,7 +352,8 @@ def run_filter(args):
             in_path = tmp.name
         try:
             kept, total = stream_filter_bam(in_path, out_path, fp, ff,
-                                            inverse=args.inverse)
+                                            inverse=args.inverse,
+                                            device=device)
         finally:
             if tmp is not None:
                 os.unlink(tmp.name)

@@ -76,6 +76,26 @@
 // do: the library is built without fast math, with -prec-div=true
 // -ftz=false -fmad=false (ops/cuda_build.py).
 //
+// The parse (steps kStarts, kParse and kParseEmit) is the classic record
+// reader's ingest on the card: it takes over the host's ct_walk_complete,
+// ct_parse_phase1 and ct_parse_phase2 (native/bamdecode.cpp:220, 306, 338)
+// and writes every RecordBatch column they write, bit for bit. It reuses
+// steps (a) and (b) for the record starts, with the chain stopping at a
+// block_size under 32 (min_bs) rather than 33: the host walks on there, and
+// a record under 32 bytes always fails its geometry check, while one of 32
+// can pass it. A launch writes the record starts from the regions' lists
+// (so that the caller can let the lists go before the columns are made),
+// then a warp a region, a thread a record: the fixed fields,
+// the FNV-1a hash of the read name, the CIGAR walk (aligned lengths,
+// indels, the reference end, the count of M/=/X blocks) and the aux search
+// for NM and AS, and the first bad record and the first of corrupt
+// geometry as atomic minima (perr). Between the launches the caller takes
+// the exclusive scan of the block counts; the emit writes each record's
+// blocks with their record index. Bound: the sectors that hold each
+// record's fixed fields, read name, CIGAR and aux tags up to NM and AS
+// (never the sequence or the qualities), read once, and the columns and
+// blocks written once (ops/bam_scan.parse_bytes_read).
+//
 // The same source builds for the host with g++ (no __CUDACC__): each step
 // runs through the same functions (bam_scan_host), a block's threads one
 // after another and its scans as loops, so the CPU tests hold this code
@@ -95,8 +115,9 @@ namespace {
 
 constexpr int kLogRegion = 16;
 constexpr long long kRegion = 1ll << kLogRegion;  // bytes a region
-// record starts a region can hold: a record takes 4 + 33 bytes or more
-constexpr int kCap = (int)((kRegion - 1) / 37 + 1);
+// record starts a region can hold: a record of the chain takes 4 + 32
+// bytes or more (min_bs: 33 for the scan, 32 for the parse)
+constexpr int kCap = (int)((kRegion - 1) / 36 + 1);
 constexpr int kChunkShift = 15;
 constexpr long long kChunk = 1ll << kChunkShift;  // the host's chunk
 constexpr int kRunWords = 9;    // tid, 6 integer sums, 2 float64 sums
@@ -119,8 +140,15 @@ enum Step {
   kStitchWalk = 2,
   kAnalyse = 3,
   kFold = 4,
-  kEmit = 5
+  kEmit = 5,
+  kStarts = 6,
+  kParse = 7,
+  kParseEmit = 8
 };
+// FNV-1a over the read name, as the host hashes it
+constexpr uint64_t kFnvOffset = 0xcbf29ce484222325ull;
+constexpr uint64_t kFnvPrime = 0x100000001b3ull;
+constexpr long long kAsMissing = -0x7fffffffffffffffll - 1;  // INT64_MIN
 
 }  // namespace
 
@@ -130,6 +158,7 @@ struct ScanArgs {
   const uint8_t* data;  // the slot: records from `start`, bytes to `end`
   long long start, end, n_regions;
   int n_ref, skip_mask, req_mask, use_filter, min_mapq;
+  int min_bs;  // the chain stops at a block_size below it (and at 0)
   long long min_aligned_length;
   float min_aligned_percent, min_identity;
   // speculate
@@ -159,6 +188,21 @@ struct ScanArgs {
   long long* runs;     // [chunks * kChunk][kRunWords], a chunk's from its
                        // first record's slot
   long long* chunks;   // [chunks][kChunkWords]
+  // the parse's columns (rec_off, tid, nblk, nm, ind, blk_off, bstart and
+  // bend above are its too), [n_records] unless said
+  int* pos;
+  uint16_t* flag;
+  uint8_t* mapq;
+  int* l_seq;
+  long long* as_score;
+  uint64_t* qname_hash;
+  long long* aligned_cov;
+  long long* aligned_pair;
+  int* read_end;
+  long long* rec_end;
+  int* block_read;     // [blocks]
+  long long* perr;     // [2] the first bad record, the first of corrupt
+                       // geometry (n_records: none)
 };
 
 namespace {
@@ -254,7 +298,8 @@ SCAN_HD void block_scan(long long* x, long long* warp, long long* tot) {
 #endif
 }
 
-// *p = min(*p, v), *p in shared memory (an integer atomic on the card)
+// *p = min(*p, v), *p in shared or device memory (an integer atomic on
+// the card)
 SCAN_HD void shared_min(long long* p, long long v) {
 #ifdef __CUDA_ARCH__
   atomicMin(p, v);
@@ -297,7 +342,8 @@ SCAN_HD void speculate_walk(const ScanArgs& a, long long b, long long p) {
   int n = 0;
   while (pos < r1 && pos + 4 <= a.end) {
     uint32_t bs = ld_u32(a.data + pos);
-    if (bs == 0 || pos + 4 + (long long)bs > a.end || bs < 33) break;
+    if (bs == 0 || pos + 4 + (long long)bs > a.end || bs < (uint32_t)a.min_bs)
+      break;
     list[n++] = (int)(pos - r0);
     pos += 4 + (long long)bs;
   }
@@ -349,7 +395,7 @@ SCAN_HD void stitch_end(const ScanArgs& a, long long x, StitchState& s) {
     } else if (x + 4 + (long long)bs > a.end) {
       s.stop = kPastEnd;
     } else {
-      s.stop = kTooShort;  // below the BAM fixed-block minimum
+      s.stop = kTooShort;  // below min_bs
       s.err = s.nrec + 1;
     }
   }
@@ -385,7 +431,9 @@ SCAN_HD void stitch_tile(const ScanArgs& a, const long long* f_,
       c = 0;
       while (pos < r1 && pos + 4 <= a.end) {
         uint32_t bs = ld_u32(a.data + pos);
-        if (bs == 0 || pos + 4 + (long long)bs > a.end || bs < 33) break;
+        if (bs == 0 || pos + 4 + (long long)bs > a.end ||
+            bs < (uint32_t)a.min_bs)
+          break;
         c++;
         pos += 4 + (long long)bs;
         if (pos < r1 && f >= 0 && pos > f) {
@@ -516,13 +564,17 @@ SCAN_HD bool single_read_passes(const ScanArgs& a, uint8_t mapq,
          identity >= a.min_identity;
 }
 
-// scan_aux_tags of native/bamdecode.cpp for NM alone: 0 (nm -1 when
-// absent) or -1 on a malformed or truncated tag.
-SCAN_HD int scan_aux_nm(const uint8_t* rec, long long aux, long long rec_len,
-                        long long* nm) {
+// scan_aux_tags of native/bamdecode.cpp: NM alone (want_as false, the
+// scan) or NM and AS (the parse), the search ending when it has found as
+// many tags as it wants; nm -1 and as_score INT64_MIN when absent. 0, or -1
+// on a malformed or truncated tag.
+SCAN_HD int scan_aux_tags(const uint8_t* rec, long long aux, long long rec_len,
+                          long long* nm, long long* as_score, bool want_as) {
   *nm = -1;
+  *as_score = kAsMissing;
   if (aux < 0 || aux > rec_len) aux = rec_len;  // corrupt: no aux region
-  while (aux + 3 <= rec_len) {
+  int found = 0, want = want_as ? 2 : 1;
+  while (aux + 3 <= rec_len && found < want) {
     uint8_t t0 = rec[aux], t1 = rec[aux + 1], typ = rec[aux + 2];
     aux += 3;
     long long val = 0;
@@ -577,9 +629,14 @@ SCAN_HD int scan_aux_nm(const uint8_t* rec, long long aux, long long rec_len,
       default:
         return -1;
     }
-    if (has_val && t0 == 'N' && t1 == 'M') {
-      *nm = val;
-      return 0;
+    if (has_val) {
+      if (t0 == 'N' && t1 == 'M') {
+        *nm = val;
+        found++;
+      } else if (want_as && t0 == 'A' && t1 == 'S') {
+        *as_score = val;
+        found++;
+      }
     }
   }
   return 0;
@@ -625,7 +682,8 @@ SCAN_HD void analyse(const ScanArgs& a, long long off, long long g) {
       // (l_seq + 1) / 2 in int32, as the host computes it
       long long aux = 32 + (long long)l_rn + 4ll * n_cigar +
                       (int32_t)((uint32_t)l_seq + 1u) / 2 + l_seq;
-      if (scan_aux_nm(rec, aux, rec_len, &nm) != 0) {
+      long long as_score;
+      if (scan_aux_tags(rec, aux, rec_len, &nm, &as_score, false) != 0) {
         fl |= kError;
       } else if (a.use_filter &&
                  !single_read_passes(a, rec[9], a_cov, l_seq, nm)) {
@@ -665,6 +723,101 @@ SCAN_HD void emit(const ScanArgs& a, long long g) {
     long long ln = c >> 4;
     if (op == 0 || op == 7 || op == 8) {
       a.btid[o] = tid;
+      a.bstart[o] = (int32_t)cursor;
+      a.bend[o] = (int32_t)(cursor + ln);
+      o++;
+      cursor += ln;
+    } else if (op == 2 || op == 3) {
+      cursor += ln;
+    }
+  }
+}
+
+// ct_parse_phase2's work on record g at off: its columns and its count of
+// blocks; a record whose l_seq is negative, whose name and CIGAR run past
+// its block_size (corrupt geometry) or whose aux tags are malformed gives
+// its index to perr[0], and one of corrupt geometry also to perr[1]. The
+// chain holds only records of 32 bytes or more, so the fixed fields lie in
+// the record.
+SCAN_HD void parse_record(const ScanArgs& a, long long off, long long g) {
+  const uint8_t* rec = a.data + off + 4;
+  long long rec_len = ld_u32(a.data + off);
+  int32_t pos = (int32_t)ld_u32(rec + 4);
+  int l_rn = rec[8];
+  uint32_t n_cigar = ld_u16(rec + 12);
+  int32_t l_seq = (int32_t)ld_u32(rec + 16);
+  a.rec_end[g] = off + 4 + rec_len;
+  a.tid[g] = (int32_t)ld_u32(rec);
+  a.pos[g] = pos;
+  a.mapq[g] = rec[9];
+  a.flag[g] = (uint16_t)ld_u16(rec + 14);
+  a.l_seq[g] = l_seq;
+  a.nblk[g] = 0;
+  bool geom = 32 + (long long)l_rn + 4ll * n_cigar > rec_len;
+  if (geom || l_seq < 0) {
+    shared_min(a.perr, g);
+    if (geom) shared_min(a.perr + 1, g);
+    return;
+  }
+  uint64_t h = kFnvOffset;
+  for (int i = 0; i + 1 < l_rn; i++) {
+    h ^= rec[32 + i];
+    h *= kFnvPrime;
+  }
+  a.qname_hash[g] = h;
+  const uint8_t* cig = rec + 32 + l_rn;
+  long long cursor = pos, a_cov = 0, a_pair = 0, ind = 0;
+  int nb = 0;
+  for (uint32_t k = 0; k < n_cigar; k++) {
+    uint32_t c = ld_u32(cig + 4 * k);
+    uint32_t op = c & 0xF;
+    long long ln = c >> 4;
+    if (op == 0 || op == 7 || op == 8) {  // M, =, X: a block
+      nb++;
+      a_cov += ln;
+      a_pair += ln;
+      cursor += ln;
+    } else if (op == 1) {  // I
+      a_cov += ln;
+      a_pair += ln;
+      ind += ln;
+    } else if (op == 2) {  // D
+      a_cov += ln;
+      ind += ln;
+      cursor += ln;
+    } else if (op == 3) {  // N
+      cursor += ln;
+    }  // S, H, P and the codes above 8 move nothing
+  }
+  a.nblk[g] = nb;
+  a.aligned_cov[g] = a_cov;
+  a.aligned_pair[g] = a_pair;
+  a.ind[g] = ind;
+  a.read_end[g] = (int32_t)cursor;
+  // (l_seq + 1) / 2 in int32, as the host computes it
+  long long aux = 32 + (long long)l_rn + 4ll * n_cigar +
+                  (int32_t)((uint32_t)l_seq + 1u) / 2 + l_seq;
+  long long nm, as_score;
+  if (scan_aux_tags(rec, aux, rec_len, &nm, &as_score, true) != 0)
+    shared_min(a.perr, g);
+  a.nm[g] = nm;
+  a.as_score[g] = as_score;
+}
+
+// Record g's blocks, with its index, at its offset of the exclusive scan.
+SCAN_HD void parse_emit(const ScanArgs& a, long long g) {
+  const uint8_t* rec = a.data + a.rec_off[g] + 4;
+  int l_rn = rec[8];
+  uint32_t n_cigar = ld_u16(rec + 12);
+  const uint8_t* cig = rec + 32 + l_rn;
+  long long cursor = (int32_t)ld_u32(rec + 4);
+  long long o = a.blk_off[g];
+  for (uint32_t k = 0; k < n_cigar; k++) {
+    uint32_t c = ld_u32(cig + 4 * k);
+    uint32_t op = c & 0xF;
+    long long ln = c >> 4;
+    if (op == 0 || op == 7 || op == 8) {
+      a.block_read[o] = (int32_t)g;
       a.bstart[o] = (int32_t)cursor;
       a.bend[o] = (int32_t)(cursor + ln);
       o++;
@@ -926,7 +1079,8 @@ __global__ void __launch_bounds__(256) bam_scan_stitch_walk(ScanArgs a) {
   if (threadIdx.x == 0) stitch_finish(a, s, from);
 }
 
-// mode 0 analyse, mode 1 emit: a warp a region
+// mode 0 analyse (the record starts first), 1 emit, 2 the record starts
+// alone, 3 parse, 4 the parse's emit: a warp a region
 __global__ void __launch_bounds__(32 * kWarps)
     bam_scan_records(ScanArgs a, int mode) {
   int lane = threadIdx.x & 31;
@@ -934,7 +1088,10 @@ __global__ void __launch_bounds__(32 * kWarps)
   if (b >= a.n_regions) return;
   int c = a.count[b];
   long long base = a.base[b];
-  if (mode == 0) {
+  if (mode == 3) {
+    for (int i = lane; i < c; i += 32)
+      parse_record(a, a.rec_off[base + i], base + i);
+  } else if (mode == 0 || mode == 2) {
     int k = a.rank[b];
     if (k >= 0) {
       long long r0 = a.start + (b << kLogRegion);
@@ -948,12 +1105,17 @@ __global__ void __launch_bounds__(32 * kWarps)
       }
     }
     __syncwarp();
-    for (int i = lane; i < c; i += 32)
-      analyse(a, a.rec_off[base + i], base + i);
+    if (mode == 0)
+      for (int i = lane; i < c; i += 32)
+        analyse(a, a.rec_off[base + i], base + i);
   } else {
     for (int i = lane; i < c; i += 32) {
       long long g = base + i;
-      if (a.nblk[g]) emit(a, g);
+      if (!a.nblk[g]) continue;
+      if (mode == 1)
+        emit(a, g);
+      else
+        parse_emit(a, g);
     }
   }
 }
@@ -992,10 +1154,18 @@ int bam_scan_launch(int step, const ScanArgs* args, int device,
       break;
     case kAnalyse:
     case kEmit:
+    case kStarts:
+    case kParse:
+    case kParseEmit: {
+      int mode = step == kAnalyse ? 0
+                 : step == kEmit  ? 1
+                 : step == kStarts ? 2
+                 : step == kParse ? 3
+                                  : 4;
       if (region_blocks)
-        bam_scan_records<<<region_blocks, 32 * kWarps, 0, st>>>(
-            a, step == kEmit);
+        bam_scan_records<<<region_blocks, 32 * kWarps, 0, st>>>(a, mode);
       break;
+    }
     case kFold:
       if (n_chunks(a))
         bam_scan_fold<<<(unsigned)n_chunks(a), kThreads, 0, st>>>(a);
@@ -1049,6 +1219,7 @@ int bam_scan_host(int step, const ScanArgs* args) {
       return 0;
     }
     case kAnalyse:
+    case kStarts:
       for (long long b = 0; b < a.n_regions; b++) {
         int c = a.count[b];
         long long pos = a.entry[b];
@@ -1061,9 +1232,13 @@ int bam_scan_host(int step, const ScanArgs* args) {
             a.rec_off[g] = pos;
             pos += 4 + (long long)ld_u32(a.data + pos);
           }
-          analyse(a, a.rec_off[g], g);
+          if (step == kAnalyse) analyse(a, a.rec_off[g], g);
         }
       }
+      return 0;
+    case kParse:
+      for (long long g = 0; g < a.n_records; g++)
+        parse_record(a, a.rec_off[g], g);
       return 0;
     case kFold: {
       FoldShared* s = new FoldShared;
@@ -1074,6 +1249,10 @@ int bam_scan_host(int step, const ScanArgs* args) {
     case kEmit:
       for (long long g = 0; g < a.n_records; g++)
         if (a.nblk[g]) emit(a, g);
+      return 0;
+    case kParseEmit:
+      for (long long g = 0; g < a.n_records; g++)
+        if (a.nblk[g]) parse_emit(a, g);
       return 0;
     default:
       return -1;

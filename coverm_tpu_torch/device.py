@@ -17,7 +17,9 @@ can be tested without cards.
 
 from __future__ import annotations
 
+import contextlib
 import os
+import threading
 
 import torch
 
@@ -27,6 +29,10 @@ CPU_DEVICES_VAR = "COVERM_TPU_TORCH_CPU_DEVICES"
 # the card indices of this rank in a multi-process job, set by
 # parallel.distributed.maybe_initialize (card_share)
 job_cards: list[int] | None = None
+
+# card_turn's locks, by card index
+_turns: dict[int, threading.Lock] = {}
+_turns_lock = threading.Lock()
 
 
 def default_device() -> torch.device:
@@ -104,3 +110,18 @@ def device_grid(n_devices: int | None = None, dp: int = 1, devices=None):
     if n < 1 or n * dp != len(devices):
         raise ValueError(f"{len(devices)} devices do not make {dp} dp rows")
     return [devices[r * n:(r + 1) * n] for r in range(dp)]
+
+
+def card_turn(device=None):
+    """The turn on a card (resolve_device(device)) that the ingest on it
+    and the engine's dispatch to it take: one lock a card for the whole
+    process, so that an ingest's card slot and buffers (io/bam's card
+    route, io/fastscan.scan_sample_fused's) are never live during an
+    engine call. A context that does nothing for the CPU."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return contextlib.nullcontext()
+    index = dev.index if dev.index is not None \
+        else torch.cuda.current_device()
+    with _turns_lock:
+        return _turns.setdefault(index, threading.Lock())

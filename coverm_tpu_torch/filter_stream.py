@@ -25,7 +25,8 @@ import struct
 import numpy as np
 
 from .io import bgzf
-from .io.bam import BamStreamReader, _cat, parse_records
+from .io.bam import (BamStreamReader, TruncatedHeaderError,
+                     concat_batches)
 from .readfilter import apply_read_filter
 
 
@@ -44,6 +45,7 @@ class _HeaderCopier:
         self._need = 8          # magic + l_text
         self._text_left = 0
         self._refs_left = 0
+        self.n_ref = None
         self.done = False
 
     def feed(self, buf: bytes, start: int = 0) -> int:
@@ -76,7 +78,7 @@ class _HeaderCopier:
                 (n_ref,) = struct.unpack_from("<i", buf, p)
                 self._w.write(buf[p:p + 4])
                 p += 4
-                self._refs_left = n_ref
+                self.n_ref = self._refs_left = n_ref
                 self._state = "refs"
             else:  # refs
                 if self._refs_left == 0:
@@ -97,20 +99,34 @@ class _HeaderCopier:
 
 
 def stream_filter_bam(in_path: str, out_path: str, params, flag_filters,
-                      inverse: bool = False, target_bytes: int = 1 << 28):
-    """Filter one BAM into another in bounded memory.
+                      inverse: bool = False, target_bytes: int = 1 << 28,
+                      device=None):
+    """Filter one BAM into another in bounded memory. Its records are
+    inflated and parsed where io/bam.BamStreamReader puts them on
+    `device` (device.resolve_device: None is the card), each once.
 
     Returns (n_kept, n_total)."""
     filtering_single, filtering_pairs = params.filtering_modes(flag_filters)
     # anything that is not single-only runs the pair path (filter.rs:88)
     # and therefore needs same-contig mates inside one batch
     filtering_pairs = not (filtering_single and not filtering_pairs)
-    reader = BamStreamReader(in_path, target_bytes=target_bytes)
+    reader = BamStreamReader(in_path, target_bytes=target_bytes,
+                             device=device)
     kept = total = 0
     with open(out_path, "wb") as f:
         w = bgzf.BgzfWriter(f)
         hc = _HeaderCopier(w)
-        carry = b""
+
+        def header_at(buf, final):
+            """The header copied through as it comes (io/bam's
+            BamStreamReader.parsed); an empty stream has none."""
+            start = hc.feed(buf)
+            if hc.done:
+                return start, hc.n_ref
+            if final and len(buf):
+                raise TruncatedHeaderError(
+                    f"BAM header of {in_path} is truncated")
+            return start, None
 
         def emit(batch):
             nonlocal kept, total
@@ -132,47 +148,33 @@ def stream_filter_bam(in_path: str, out_path: str, params, flag_filters,
             for a, b in zip(run_s, run_e):
                 w.write(data[starts[a]:ends[b]])
 
-        for seg in reader._segments():
-            buf = _cat(carry, seg)
-            carry = b""
-            start = 0
-            if not hc.done:
-                start = hc.feed(buf)
-                if not hc.done:
-                    carry = buf[start:]
-                    continue
-            batch, end_off = parse_records(buf, start)
+        # held: the parsed rows of the trailing open contig (pairs), emitted
+        # when it closes
+        held = []
+        for _buf, batch, _end, last in reader.parsed(header_at):
             if batch.n_records == 0:
-                carry = buf[end_off:]
                 continue
-            if filtering_pairs:
-                # hold back the trailing open contig so mate pairs never
-                # span batches (contig-boundary cut)
-                last_tid = int(batch.tid[-1])
-                earlier = np.flatnonzero(batch.tid != last_tid)
-                cut = int(earlier[-1]) + 1 if earlier.size else 0
-                if cut == 0:
-                    carry = buf[int(batch.rec_start[0]):]
-                    continue
-                cut_off = int(batch.rec_start[cut])
-                emit(batch.select(np.arange(batch.n_records) < cut))
-                carry = buf[cut_off:]
-            else:
+            if not filtering_pairs:
                 emit(batch)
-                carry = buf[end_off:]
-        if len(carry):
-            if not hc.done:
-                start = hc.feed(carry)
-                if not hc.done:
-                    from .io.bam import TruncatedHeaderError
-                    raise TruncatedHeaderError(
-                        f"BAM header of {in_path} is truncated")
-                carry = carry[start:]
-                batch, _ = (parse_records(carry, 0) if len(carry)
-                            else (None, 0))
-            else:
-                batch, _ = parse_records(carry, 0)
-            if batch is not None:
-                emit(batch)
+                continue
+            if last:
+                held.append(batch)
+                continue
+            # hold back the trailing open contig so mate pairs never span
+            # batches (contig-boundary cut)
+            last_tid = int(batch.tid[-1])
+            earlier = np.flatnonzero(batch.tid != last_tid)
+            cut = int(earlier[-1]) + 1 if earlier.size else 0
+            if cut == 0:
+                if held and int(held[0].tid[0]) != last_tid:
+                    emit(concat_batches(held))
+                    held = []
+                held.append(batch)
+                continue
+            emit(concat_batches(held + [batch.rows(0, cut)]))
+            n = batch.n_records
+            held = [batch.rows(cut, n)] if cut < n else []
+        if held:
+            emit(concat_batches(held))
         w.close()
     return kept, total

@@ -233,9 +233,10 @@ class _GeneAccum:
 
 def _scan_gene_batch(batch, flag_filter, acc, vlayout, need_hist,
                      gene_tid, gene_start, gene_end, observed_contig,
-                     last_max_tid, device=None):
+                     last_max_tid, device, turn):
     """One RecordBatch's contribution to the per-gene accumulators; the
-    clipped blocks go through the sweep on `device`.
+    clipped blocks go through the sweep on `device`, inside `turn` (the
+    card's, device.card_turn).
     Returns (num_mapped_primary, num_primary, new_last_max_tid)."""
     passes = flag_filter.passes(batch)
     mapped = ~batch.is_unmapped()
@@ -256,9 +257,10 @@ def _scan_gene_batch(batch, flag_filter, acc, vlayout, need_hist,
         batch.block_start[buse].astype(np.int64),
         batch.block_end[buse].astype(np.int64),
         gene_tid, gene_start, gene_end)
-    acc.add_depth_deferred(compute_depth_stats_sweep(
-        vlayout, vg, vs, ve, need_hist=need_hist, deferred=True,
-        device=device))
+    with turn:
+        acc.add_depth_deferred(compute_depth_stats_sweep(
+            vlayout, vg, vs, ve, need_hist=need_hist, deferred=True,
+            device=device))
 
     # read-level prefix stats keyed by (tid, leftmost pos)
     r_tid = batch.tid[use].astype(np.int64)
@@ -294,10 +296,13 @@ def gene_coverage(sources, taker, estimators, gene_definitions, genome_namer,
                   threads: int = 1, device=None):
     """`--gff` mode engine (genes.rs:182-344), the sweep on `device`
     (default: default_device()). Returns per-sample ReadsMapped."""
-    from .device import resolve_device
+    from .device import card_turn, resolve_device
     from .io.bam import RecordBatch
 
     device = resolve_device(device)
+    # the engine's dispatch takes turns with an ingest on the same card
+    # (io/bam's card route)
+    turn = card_turn(device)
     reads_mapped_vector = []
     need_hist = any_needs_hist(estimators)
     ee = _exclusion_of(estimators)
@@ -320,13 +325,18 @@ def gene_coverage(sources, taker, estimators, gene_definitions, genome_namer,
         num_mapped_total = 0
         num_primary = 0
         last_max_tid = -1
-        batches = [payload] if isinstance(payload, RecordBatch) else payload
+        if isinstance(payload, RecordBatch):
+            batches = [payload]
+        elif hasattr(payload, "batches"):  # io/fastscan.FusedScanStream
+            batches = payload.batches(device)
+        else:
+            batches = payload
         from .prefetch import prefetch_iter
         for batch in prefetch_iter(batches):
             nm_, np_, last_max_tid = _scan_gene_batch(
                 batch, flag_filter, acc, vlayout, need_hist,
                 gene_tid, gene_start, gene_end, observed_contig,
-                last_max_tid, device)
+                last_max_tid, device, turn)
             num_mapped_total += nm_
             num_primary += np_
         acc.finalize()

@@ -19,6 +19,7 @@ Flag semantics and per-record derived quantities follow the reference:
 from __future__ import annotations
 
 import struct
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -384,6 +385,23 @@ def check_stuck_zero(buf, end_off: int) -> None:
             "Malformed BAM record (zero block_size mid-stream)")
 
 
+def batch_of_columns(cols, data) -> RecordBatch:
+    """The RecordBatch of parse_records_full's columns (or the card
+    parse's, ops/bam_scan.ParsedSegment.columns) over `data`."""
+    return RecordBatch(
+        n_records=cols["tid"].size,
+        tid=cols["tid"], pos=cols["pos"], flag=cols["flag"],
+        mapq=cols["mapq"], nm=cols["nm"], as_score=cols["as_score"],
+        seq_len=cols["seq_len"], aligned_cov=cols["aligned_cov"],
+        aligned_single=cols["aligned_cov"],  # M+I+D+X+= is the same set
+        aligned_pair=cols["aligned_pair"], indels=cols["indels"],
+        read_end=cols["read_end"], qname_hash=cols["qname_hash"],
+        rec_start=cols["rec_start"], rec_end=cols["rec_end"],
+        block_read=cols["block_read"], block_start=cols["block_start"],
+        block_end=cols["block_end"], data=data,
+    )
+
+
 def parse_records(data: bytes, start: int, end: int | None = None) -> tuple:
     """Decode the COMPLETE records in data[start:end) -> (RecordBatch,
     end_offset). Records straddling `end` are left for the caller's next
@@ -394,19 +412,7 @@ def parse_records(data: bytes, start: int, end: int | None = None) -> tuple:
     except ValueError as e:
         raise BamFormatError(str(e))
     if full is not None:
-        batch = RecordBatch(
-            n_records=full["tid"].size,
-            tid=full["tid"], pos=full["pos"], flag=full["flag"],
-            mapq=full["mapq"], nm=full["nm"], as_score=full["as_score"],
-            seq_len=full["seq_len"], aligned_cov=full["aligned_cov"],
-            aligned_single=full["aligned_cov"],  # M+I+D+X+= is the same set
-            aligned_pair=full["aligned_pair"], indels=full["indels"],
-            read_end=full["read_end"], qname_hash=full["qname_hash"],
-            rec_start=full["rec_start"], rec_end=full["rec_end"],
-            block_read=full["block_read"], block_start=full["block_start"],
-            block_end=full["block_end"], data=data,
-        )
-        return batch, full["end_off"]
+        return batch_of_columns(full, data), full["end_off"]
     arr = _as_u8(data)
     n_bytes = len(data) if end is None else end
     off = start
@@ -542,22 +548,39 @@ class BamStreamReader:
 
     The reference scans record-by-record through htslib
     (bam_generator.rs:103-144); here the compressed file is memory-mapped,
-    BGZF blocks inflate natively (multi-threaded) segment by segment
-    (~``target_bytes`` uncompressed each), and records decode into
-    RecordBatches that are CUT AT CONTIG BOUNDARIES — every contig's
-    records land in exactly one batch, so per-batch depth statistics are
-    disjoint and merge by plain addition (scan.merge_scans).  Memory is
-    O(segment + largest single contig's records) instead of O(file).
+    its BGZF blocks inflate segment by segment (~``target_bytes``
+    uncompressed each), and records decode into RecordBatches that are
+    CUT AT CONTIG BOUNDARIES — every contig's records land in exactly one
+    batch, so per-batch depth statistics are disjoint and merge by plain
+    addition (scan.merge_scans). Memory is O(segment + largest single
+    contig's records) instead of O(file).
+
+    `device` (device.resolve_device: None is the card) says where a BGZF
+    file's segments inflate and parse: on a CUDA device the card's inflate
+    kernel puts each segment into a card slot after the carry, the card's
+    parse (ops/bam_scan.parse_segment) writes the columns, and they and
+    the slot's bytes come back into pinned host memory; the header is
+    parsed on the host from the first segment's bytes, and the carry stays
+    in host memory. The slot and the parse's buffers live only inside the
+    card's turn (device.card_turn), which the engine's dispatch takes too.
+    There is no fall-back to the host there. On the CPU the host inflates
+    (native threads) and parses (parse_records_full). The segments are cut
+    alike on both, so are the batches. CRAM, and BGZF without the native
+    library (the portable zlib path), stay on the host. With `timing` the
+    card route keeps its seconds and milliseconds in `timings`.
     """
 
     def __init__(self, path: str, target_bytes: int = 1 << 28,
-                 cut_contigs: bool = True):
+                 cut_contigs: bool = True, device=None, timing=False):
         self.path = path
         self.target_bytes = int(target_bytes)
         # cut_contigs=False yields plain complete-record segment batches
         # (for NAME-sorted inputs — shard BAMs — where contig-boundary
         # cutting is meaningless and could make the carry unbounded)
         self.cut_contigs = cut_contigs
+        self.device = device
+        self.timing = timing
+        self.timings = {}
         self.header = None
 
     def read(self):
@@ -566,7 +589,21 @@ class BamStreamReader:
         header = next(gen)
         return header, gen
 
-    def _segments(self):
+    def _bgzf_table(self):
+        """(memmap, block offsets, compressed and inflated sizes) of a BGZF
+        file through the native library, else None."""
+        from . import native
+        with open(self.path, "rb") as f:
+            if f.read(4) == b"CRAM" or native.get_lib() is None:
+                return None
+        mm = np.memmap(self.path, np.uint8, mode="r")
+        tables = native.bgzf_scan(mm)
+        return None if tables is None else (mm, *tables)
+
+    def _segments(self, table):
+        """The inflated segments on the host: a CRAM's containers as BAM
+        bytes, a BGZF file's blocks through the native library by its
+        `table` (_bgzf_table), or through zlib when there is none."""
         with open(self.path, "rb") as f:
             magic = f.read(4)
         if magic == b"CRAM":
@@ -583,25 +620,17 @@ class BamStreamReader:
                     mm.close()
             return
         from . import native
-        if native.get_lib() is not None:
-            mm = np.memmap(self.path, np.uint8, mode="r")
-            tables = native.bgzf_scan(mm)
-            if tables is not None:
-                off, csz, usz = tables
-                cum = np.cumsum(usz)
-                i, n = 0, off.size
-                while i < n:
-                    base = int(cum[i - 1]) if i else 0
-                    j = int(np.searchsorted(cum, base + self.target_bytes)) + 1
-                    j = min(max(j, i + 1), n)
-                    seg = native.bgzf_inflate_blocks(
-                        mm, off[i:j], csz[i:j], usz[i:j])
-                    if seg is None:
-                        raise BamFormatError(
-                            f"BGZF inflate failed in {self.path}")
-                    yield seg
-                    i = j
-                return
+        if table is not None:
+            from .fastscan import plan_segments
+            mm, off, csz, usz = table
+            for i, j in plan_segments(usz, 0, self.target_bytes):
+                seg = native.bgzf_inflate_blocks(
+                    mm, off[i:j], csz[i:j], usz[i:j])
+                if seg is None:
+                    raise BamFormatError(
+                        f"BGZF inflate failed in {self.path}")
+                yield seg
+            return
         # portable fallback: sequential zlib streaming
         from . import bgzf as _bgzf
         with open(self.path, "rb") as f:
@@ -615,36 +644,161 @@ class BamStreamReader:
             if pend:
                 yield b"".join(pend)
 
-    def _run(self):
+    def parsed(self, header_at):
+        """(buf, batch, end_off, last) for each segment in file order: its
+        bytes after the carry, the batch of its complete records parsed
+        from the start that header_at gives, and where they end; `last`
+        marks the bytes left after the last segment (parsed when there are
+        any). header_at(buf, final) -> (start, n_ref) reads the header
+        from the first bytes: n_ref None while it spans beyond buf (buf
+        from `start` is then carried whole); with final (the bytes left
+        at the end) it raises on a header cut short, or gives n_ref None
+        when nothing is left to parse. The card route on a CUDA device,
+        else the host's; each a segment ahead on prefetch_iter's
+        thread."""
+        from ..device import resolve_device
         from ..prefetch import prefetch_iter
+        from . import fastscan
+        self.device = resolve_device(self.device)
+        table = self._bgzf_table()
+        make = fastscan._card_inflater(self.device) \
+            if table is not None else None
+        if make is not None:
+            return prefetch_iter(self._card_parsed(make, table, header_at))
+        return self._host_parsed(table, header_at)
 
+    def _host_parsed(self, table, header_at):
         # carry: the raw bytes of a record that straddles two segments
-        # (or of a header that spans them), never parsed yet; held: the
-        # parsed rows of the trailing open contig, yielded when it
-        # closes. Every record is parsed once.
+        # (or of a header that spans them), never parsed yet. Segments are
+        # uint8 ndarrays on the native path, so the carry slices below are
+        # zero-copy views of the inflate buffer. The inflate runs a
+        # segment ahead of the parse on prefetch_iter's thread.
+        from ..prefetch import prefetch_iter
         carry = b""
-        held = []
-        # prefetch one segment ahead: BGZF inflate (native thread pool)
-        # overlaps record parse — the pipeline analogue of htslib's
-        # decode-thread overlap with the reference's scan thread.
-        # Segments are uint8 ndarrays on the native path, so the carry
-        # slices below are zero-copy views of the inflate buffer.
-        for seg in prefetch_iter(self._segments()):
+        n_ref = None
+        for seg in prefetch_iter(self._segments(table)):
             buf = _cat(carry, seg)
-            carry = b""
             start = 0
-            if self.header is None:
-                try:
-                    self.header, start = _parse_header(buf)
-                except (struct.error, IndexError, UnicodeDecodeError,
-                        TruncatedHeaderError):
-                    carry = buf  # header spans segments; keep accumulating
+            if n_ref is None:
+                start, n_ref = header_at(buf, False)
+                if n_ref is None:
+                    carry = buf[start:]
                     continue
-                yield self.header
             batch, end_off = parse_records(buf, start)
-            check_stuck_zero(buf, end_off)
             carry = buf[end_off:]
+            yield buf, batch, end_off, False
+        if n_ref is None:
+            start, n_ref = header_at(carry, True)
+            carry = carry[start:] if start else carry
+        if n_ref is not None and len(carry):
+            batch, end_off = parse_records(carry, 0)
+            yield carry, batch, end_off, True
+
+    def _card_parsed(self, make, table, header_at):
+        """_host_parsed's segments, each inflated into a card slot after
+        the carry (ops/bgzf_inflate.SegmentInflater) and parsed there
+        (ops/bam_scan.parse_segment), the columns and the slot's bytes
+        copied back into pinned host memory, all inside the card's turn."""
+        import torch
+
+        from ..device import card_turn
+        from ..ops import bam_scan
+        from .fastscan import _CARD_HEADROOM, plan_segments
+        mm, off, csz, usz = table
+        segments = plan_segments(usz, 0, self.target_bytes)
+        inf = make(self.path, off, csz, usz, segments, _CARD_HEADROOM)
+        turn = card_turn(inf.device)
+        t = self.timings
+        if self.timing:
+            t.update(segments=0, records=0, parse_s=0.0, parse_ms={})
+
+        def parse(slot, start, hi, n_ref, base, keep_bytes=True):
+            t0 = time.perf_counter()
+            ps = bam_scan.parse_segment(slot, start, hi, n_ref,
+                                        timing=self.timing, base=base,
+                                        keep_bytes=keep_bytes)
+            if self.timing:
+                t["parse_s"] += time.perf_counter() - t0
+                t["segments"] += 1
+                t["records"] += ps.n_records
+                for k, v in ps.timing.items():
+                    t["parse_ms"][k] = t["parse_ms"].get(k, 0.0) + v
+            return ps
+        carry = None
+        n_ref = None
+        try:
+            if segments:
+                inf.start(0)
+            for s in range(len(segments)):
+                if s + 1 < len(segments):
+                    inf.start(s + 1)
+                with turn:
+                    try:
+                        slot, lo, hi = inf.take(s, carry)
+                    except ValueError:  # a block failed: the host's error
+                        raise BamFormatError(
+                            f"BGZF inflate failed in {self.path}") from None
+                    with inf.on_stream():
+                        buf, start = None, 0
+                        if n_ref is None:
+                            buf = _host_bytes(slot[lo:hi])
+                            start, n_ref = header_at(buf, False)
+                        ps = None if n_ref is None else parse(
+                            slot, lo + start, hi, n_ref, lo, buf is None)
+                    del slot
+                if ps is None:  # the header spans beyond this segment
+                    carry = buf[start:]
+                    continue
+                buf = ps.data if buf is None else buf
+                carry = buf[ps.end_off:]
+                yield buf, batch_of_columns(ps.columns, buf), ps.end_off, \
+                    False
+            if self.timing:
+                t.update(slot_wait_s=inf.wait_s, stage_s=inf.stage_s,
+                         inflate_ms=sum(inf.kernel_ms))
+            if n_ref is None:
+                buf = np.empty(0, np.uint8) if carry is None else carry
+                start, n_ref = header_at(buf, True)
+                carry = buf[start:]
+            if n_ref is not None and carry is not None and len(carry):
+                with turn:
+                    with inf.on_stream():
+                        tail = torch.from_numpy(np.ascontiguousarray(
+                            carry)).to(inf.device)
+                        ps = parse(tail, 0, tail.numel(), n_ref, 0, False)
+                        del tail
+                yield carry, batch_of_columns(ps.columns, carry), \
+                    ps.end_off, True
+        finally:
+            inf.close()
+
+    def _header_at(self, buf, final):
+        """parsed()'s header_at for the reader: the header parsed from
+        buf into self.header."""
+        if not final:
+            try:
+                self.header, start = _parse_header(buf)
+            except (struct.error, IndexError, UnicodeDecodeError,
+                    TruncatedHeaderError):
+                return 0, None  # header spans segments; keep accumulating
+        else:
+            self.header, start = _parse_header(buf)
+        return start, self.header.n_ref
+
+    def _run(self):
+        # held: the parsed rows of the trailing open contig, yielded when
+        # it closes. Every record is parsed once.
+        held = []
+        said = False
+        for buf, batch, end_off, last in self.parsed(self._header_at):
+            if not said:
+                yield self.header
+                said = True
+            check_stuck_zero(buf, end_off)
             if batch.n_records == 0:
+                continue
+            if last:
+                held.append(batch)
                 continue
             if not self.cut_contigs:
                 yield batch
@@ -667,14 +821,20 @@ class BamStreamReader:
             yield concat_batches(held + [batch.rows(0, cut)])
             n = batch.n_records
             held = [batch.rows(cut, n)] if cut < n else []
-        if self.header is None:
-            self.header, start = _parse_header(carry)
+        if not said:
             yield self.header
-            carry = carry[start:] if start else carry
-        if len(carry):
-            batch, e2 = parse_records(carry, 0)
-            check_stuck_zero(carry, e2)
-            if batch.n_records:
-                held.append(batch)
         if held:
             yield concat_batches(held)
+
+
+def _host_bytes(t) -> np.ndarray:
+    """The bytes of uint8 tensor `t` in host memory: a view of a CPU
+    tensor; a card tensor's in pinned memory, once the current stream has
+    copied them."""
+    if t.device.type == "cpu":
+        return t.numpy()
+    import torch
+    h = torch.empty(t.numel(), dtype=torch.uint8, pin_memory=True)
+    h.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(t.device).synchronize()
+    return h.numpy()

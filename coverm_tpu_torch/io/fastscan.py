@@ -86,8 +86,11 @@ class FusedScanStream:
     of anyone who iterates the stream instead pass through
     readfilter.filter_payload."""
 
-    def __init__(self, path: str, target_bytes: int | None = None):
+    def __init__(self, path: str, target_bytes: int | None = None,
+                 device=None):
         self.path = path
+        # where the classic batches inflate and parse (BamStreamReader)
+        self.device = device
         if target_bytes is None:
             target_bytes = int(os.environ.get("COVERM_TPU_SEGMENT_BYTES",
                                               1 << 28))
@@ -123,11 +126,15 @@ class FusedScanStream:
         return None if self._filter is None else self._filter[1]
 
     # ---- classic fallback ----
-    def batches(self):
+    def batches(self, device=None):
+        """The classic reader's batches (under the stream's read filter),
+        inflated and parsed on `device`, else the stream's own device
+        (device.resolve_device: None is the card)."""
         from ..readfilter import filter_payload
 
-        header, gen = BamStreamReader(self.path,
-                                      target_bytes=self.target_bytes).read()
+        header, gen = BamStreamReader(
+            self.path, target_bytes=self.target_bytes,
+            device=self.device if device is None else device).read()
         if self._filter is None:
             return gen
         source, params, flag_filters = self._filter
@@ -467,10 +474,12 @@ def plan_segments(usz, j, target_bytes):
 
 
 def _card_inflater(dev):
-    """The inflater of the fused ingest's BGZF segments on `dev`: on a
-    CUDA device ops.bgzf_inflate.SegmentInflater on that card, into card
-    slots that the card's record scan reads; None on the CPU, where one
-    native call a segment (ct_ingest_scan) inflates and scans."""
+    """The inflater of a BGZF file's segments on `dev`, for the fused
+    ingest and the classic reader (io/bam.BamStreamReader): on a CUDA
+    device ops.bgzf_inflate.SegmentInflater on that card, into card slots
+    that the card's record scan or parse reads; None on the CPU, where the
+    host inflates (the fused ingest's ct_ingest_scan, the reader's native
+    threads)."""
     if dev.type != "cuda":
         return None
     from ..ops.bgzf_inflate import SegmentInflater
@@ -503,6 +512,7 @@ def scan_sample_fused(header, stream: FusedScanStream, layout, flag_filter,
     staying in card memory and only the blocks, runs and scalars coming
     back. There is no fall-back to the host's inflate or scan there. On
     the CPU the host inflates and scans in one native call a segment."""
+    from ..device import card_turn as device_turn
     from ..device import resolve_device
     from ..prefetch import prefetch_iter
     from ..scan import (BamSortingError, MissingNMTagError, SampleScan,
@@ -520,7 +530,7 @@ def scan_sample_fused(header, stream: FusedScanStream, layout, flag_filter,
     carry_tid = -1
     # a card slot and its scan's buffers live only between engine calls:
     # the card route's ingest and the engine's dispatch take turns
-    card_turn = threading.Lock()
+    card_turn = device_turn(device)
 
     def dispatch(chunks, counts=None):
         with card_turn:

@@ -62,6 +62,9 @@ class BamFileSource:
 
     path: str
     stoit_name: str = None
+    # where a streamed BGZF file's classic batches inflate and parse
+    # (io/bam.BamStreamReader; device.resolve_device: None is the card)
+    device: object = None
     _stream: object = field(default=None, init=False, repr=False)
 
     def __post_init__(self):
@@ -89,7 +92,7 @@ class BamFileSource:
                 magic[:2] == b"\x1f\x8b"
                 and os.path.getsize(self.path) >= STREAM_THRESHOLD_BYTES):
             from .io.fastscan import FusedScanStream
-            self._stream = FusedScanStream(self.path)
+            self._stream = FusedScanStream(self.path, device=self.device)
             return self._stream.open(), self._stream
         r = BamReader(self.path)
         return r.header, r.batch

@@ -19,6 +19,15 @@ current stream of its card, and the outputs come back in pinned host
 memory; for a CPU tensor the plain version, `bam_scan_reference`, does the
 same three steps as tensor code and a Python walk over the regions. Both
 return a SegmentScan.
+
+`parse_segment(data, start, end, n_ref)` is the classic record reader's
+parse on the same chain: every column of the host's parse_records_full
+(native/bamdecode.cpp ct_walk_complete, ct_parse_phase1 and
+ct_parse_phase2) and the coverage blocks with their record index, bit for
+bit, or the exception the host parse raises for the same bytes. Six
+launches (speculate, the stitch's check and walk, the record starts, the
+parse and its emit) for a CUDA tensor; the plain version,
+`bam_parse_reference`, for a CPU tensor. Both return a ParsedSegment.
 """
 
 from __future__ import annotations
@@ -35,7 +44,10 @@ from . import cuda_build
 
 SOURCE = cuda_build.SOURCES[2]  # csrc/bam_scan.cu
 REGION = 1 << 16        # bytes a region of the speculation
-CAP = (REGION - 1) // 37 + 1  # record starts a region can hold
+CAP = (REGION - 1) // 36 + 1  # record starts a region can hold
+# the chain stops at a block_size below this (and at 0): the scan's, and
+# the parse's (the host parse walks on past a record of 32 bytes)
+SCAN_MIN_BS, PARSE_MIN_BS = 33, 32
 CHUNK_SHIFT = 15
 CHUNK = 1 << CHUNK_SHIFT  # the host scan's chunk: records a run restarts at
 RUN_WORDS = 9    # tid, primary, nonsupp, all, nm, indel, blocks, two f64
@@ -49,11 +61,14 @@ STOP_END, STOP_ZERO, STOP_PAST_END, STOP_TOO_SHORT = range(4)
 PRIMARY, NONSUPP, HAS_IDV, COUNTED, ERROR = 1, 2, 4, 8, 16
 # the launches, by csrc/bam_scan.cu enum Step
 STEPS = ("speculate", "stitch", "stitch_walk", "analyse", "fold", "emit")
+STARTS, PARSE, PARSE_EMIT = 6, 7, 8  # the parse's own launches
+STEP_NAMES = STEPS + ("starts", "parse", "parse_emit")
 SECTOR = 32  # bytes of the card's smallest memory access (bytes_read)
 
-# scans by the CUDA kernels (one a segment: its six launches); the plain
-# version does not count
+# scans by the CUDA kernels (one a segment: its six launches), and parses
+# (one a segment: five launches); the plain versions do not count
 bam_scan_launches = 0
+bam_parse_launches = 0
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -70,7 +85,7 @@ class ScanArgs(ctypes.Structure):
     _fields_ = [("data", _vp), ("start", _i64), ("end", _i64),
                 ("n_regions", _i64), ("n_ref", _i32), ("skip_mask", _i32),
                 ("req_mask", _i32), ("use_filter", _i32), ("min_mapq", _i32),
-                ("min_aligned_length", _i64),
+                ("min_bs", _i32), ("min_aligned_length", _i64),
                 ("min_aligned_percent", ctypes.c_float),
                 ("min_identity", ctypes.c_float),
                 ("list", _vp), ("first", _vp), ("exit_", _vp), ("cnt", _vp),
@@ -79,7 +94,11 @@ class ScanArgs(ctypes.Structure):
                 ("flags", _vp), ("tid", _vp), ("nblk", _vp), ("nm", _vp),
                 ("ind", _vp), ("idv", _vp), ("blk_off", _vp), ("btid", _vp),
                 ("bstart", _vp), ("bend", _vp), ("runs", _vp),
-                ("chunks", _vp)]
+                ("chunks", _vp), ("pos", _vp), ("flag", _vp), ("mapq", _vp),
+                ("l_seq", _vp), ("as_score", _vp), ("qname_hash", _vp),
+                ("aligned_cov", _vp), ("aligned_pair", _vp),
+                ("read_end", _vp), ("rec_end", _vp), ("block_read", _vp),
+                ("perr", _vp)]
 
 
 def _load():
@@ -177,6 +196,37 @@ class SegmentScan:
                         np.int64)
 
 
+def _check_input(data, start, end, what):
+    if data.dtype != torch.uint8 or data.dim() != 1 \
+            or not data.is_contiguous():
+        raise ValueError(f"{what} takes a contiguous uint8[] tensor")
+    start, end = int(start), int(end)
+    if not 0 <= start <= end <= data.numel():
+        raise ValueError(f"{what}: [{start}, {end}) is not within the "
+                         f"{data.numel()} bytes")
+    if data.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {data.device}")
+    return start, end
+
+
+def _card_launch(data, what):
+    """launch(step, ScanArgs) on the card of `data`, on its current
+    stream; raises when the launch fails."""
+    lib = _load()
+    dev = data.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch(step, args):
+        err = lib.bam_scan_launch(step, ctypes.byref(args), dev.index,
+                                  stream)
+        if err != 0:
+            where = ("setting the card", "the launch")[min(err // 1000, 2) - 1]
+            raise RuntimeError(f"{what} kernel ({STEP_NAMES[step]}) failed "
+                               f"on {dev} at {where}: CUDA error "
+                               f"{err % 1000}")
+    return launch
+
+
 def scan_segment(data, start, end, n_ref, skip_mask, req_mask,
                  read_filter=None, timing=False):
     """SegmentScan of the complete records of `data` (uint8[]) in [start,
@@ -187,34 +237,93 @@ def scan_segment(data, start, end, n_ref, skip_mask, req_mask,
     stream (`timing`: the steps' milliseconds by CUDA events); a CPU
     tensor through the plain version."""
     global bam_scan_launches
-    if data.dtype != torch.uint8 or data.dim() != 1 \
-            or not data.is_contiguous():
-        raise ValueError("bam_scan takes a contiguous uint8[] tensor")
-    start, end = int(start), int(end)
-    if not 0 <= start <= end <= data.numel():
-        raise ValueError(f"bam_scan: [{start}, {end}) is not within the "
-                         f"{data.numel()} bytes")
+    start, end = _check_input(data, start, end, "bam_scan")
     if data.device.type == "cpu":
         return bam_scan_reference(data, start, end, n_ref, skip_mask,
                                   req_mask, read_filter)
-    if data.device.type != "cuda":
-        raise ValueError(f"bam_scan: unsupported device {data.device}")
-    lib = _load()
-    dev = data.device
-    stream = torch.cuda.current_stream(dev).cuda_stream
-
-    def launch(step, args):
-        err = lib.bam_scan_launch(step, ctypes.byref(args), dev.index,
-                                  stream)
-        if err != 0:
-            where = ("setting the card", "the launch")[min(err // 1000, 2) - 1]
-            raise RuntimeError(f"bam_scan kernel ({STEPS[step]}) failed on "
-                               f"{dev} at {where}: CUDA error {err % 1000}")
     out = run_steps(data, start, end, n_ref, skip_mask, req_mask,
-                    read_filter, launch, timing)
+                    read_filter, _card_launch(data, "bam_scan"), timing)
     with _count_lock:
         bam_scan_launches += 1
     return out
+
+
+class _Steps:
+    """One call's buffers (torch.empty on `data`'s device, their
+    addresses in `args`), its CUDA-event timings and its copies to the
+    host (pinned on a card), for run_steps and run_parse_steps."""
+
+    def __init__(self, data, start, end, n_ref, min_bs, timing):
+        self.dev = data.device
+        self.cuda = self.dev.type == "cuda"
+        self.n_regions = -(-(end - start) // REGION)
+        self.args = args = ScanArgs()
+        self.keep = {}  # the buffers args points into, by field
+        self.ms = {} if self.cuda and timing else None
+        args.data = data.data_ptr()
+        args.start, args.end, args.n_regions = start, end, self.n_regions
+        args.n_ref, args.min_bs = int(n_ref), min_bs
+
+    def buf(self, name, n, dtype, fill=None):
+        t = torch.empty(max(int(n), 1), dtype=dtype, device=self.dev)
+        if fill is not None:
+            t.fill_(fill)
+        self.keep[name] = t
+        setattr(self.args, name, t.data_ptr())
+        return t[:int(n)]
+
+    def release(self, *names):
+        """Let the buffers of `names` go once the launches enqueued so far
+        are done with them (on the stream they were made on, so a later
+        buffer may reuse their memory); args no longer points to them."""
+        for name in names:
+            del self.keep[name]
+            setattr(self.args, name, 0)
+
+    @contextlib.contextmanager
+    def timed(self, name):
+        """The card's milliseconds of what the block enqueues, by CUDA
+        events just around it (no host gap between steps counted)."""
+        if self.ms is None:
+            yield
+            return
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        yield
+        ev[1].record()
+        self.ms[name] = ev
+
+    def to_host(self, t):
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=self.cuda)
+        h.copy_(t, non_blocking=self.cuda)
+        return h
+
+    def wait(self):
+        if self.cuda:
+            torch.cuda.current_stream(self.dev).synchronize()
+
+    def timing(self):
+        if self.ms is None:
+            return None
+        return {k: a.elapsed_time(b) for k, (a, b) in self.ms.items()}
+
+    def chain(self, launch, start):
+        """Steps (a) and (b): the record starts; returns the stitch's
+        words in host memory."""
+        n_regions = self.n_regions
+        self.buf("list", n_regions * CAP, torch.int32)
+        for name, dtype in (("first", torch.int64), ("exit_", torch.int64),
+                            ("cnt", torch.int32), ("entry", torch.int64),
+                            ("rank", torch.int32), ("count", torch.int32),
+                            ("base", torch.int64)):
+            self.buf(name, n_regions, dtype)
+        stitch = self.buf("stitch", STITCH_WORDS, torch.int64)
+        if not n_regions:
+            return np.array([0, start, 0, STOP_END, 0, 0, 0, 0], np.int64)
+        for step in range(3):  # speculate, the stitch's check and walk
+            with self.timed(STEPS[step]):
+                launch(step, self.args)
+        return stitch.cpu().numpy()
 
 
 def run_steps(data, start, end, n_ref, skip_mask, req_mask, read_filter,
@@ -228,63 +337,14 @@ def run_steps(data, start, end, n_ref, skip_mask, req_mask, read_filter,
     size the blocks, and whose run counts gather the runs on the device.
     The bytes after the last complete record come back with the outputs
     (SegmentScan.tail)."""
-    dev = data.device
-    cuda = dev.type == "cuda"
-    n_regions = -(-(end - start) // REGION)
-    args = ScanArgs()
-    keep = []  # the buffers args points into
-    ms = {} if cuda and timing else None
-
-    def buf(name, n, dtype):
-        t = torch.empty(max(int(n), 1), dtype=dtype, device=dev)
-        keep.append(t)
-        setattr(args, name, t.data_ptr())
-        return t[:int(n)]
-
-    @contextlib.contextmanager
-    def timed(name):
-        """The card's milliseconds of what the block enqueues, by CUDA
-        events just around it (no host gap between steps counted)."""
-        if ms is None:
-            yield
-            return
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        yield
-        ev[1].record()
-        ms[name] = ev
-
-    def to_host(t):
-        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=cuda)
-        h.copy_(t, non_blocking=cuda)
-        return h
-
-    def wait():
-        if cuda:
-            torch.cuda.current_stream(dev).synchronize()
-
+    st = _Steps(data, start, end, n_ref, SCAN_MIN_BS, timing)
+    args, buf, timed = st.args, st.buf, st.timed
     use, mapq, alen, apct, ident = filter_fields(read_filter)
-    args.data = data.data_ptr()
-    args.start, args.end, args.n_regions = start, end, n_regions
-    args.n_ref, args.skip_mask, args.req_mask = int(n_ref), skip_mask, \
-        req_mask
+    args.skip_mask, args.req_mask = skip_mask, req_mask
     args.use_filter, args.min_mapq = use, mapq
     args.min_aligned_length = alen
     args.min_aligned_percent, args.min_identity = apct, ident
-    buf("list", n_regions * CAP, torch.int32)
-    for name, dtype in (("first", torch.int64), ("exit_", torch.int64),
-                        ("cnt", torch.int32), ("entry", torch.int64),
-                        ("rank", torch.int32), ("count", torch.int32),
-                        ("base", torch.int64)):
-        buf(name, n_regions, dtype)
-    stitch = buf("stitch", STITCH_WORDS, torch.int64)
-    if n_regions:
-        for step in range(3):  # speculate, the stitch's check and walk
-            with timed(STEPS[step]):
-                launch(step, args)
-        stitch_h = stitch.cpu().numpy()
-    else:
-        stitch_h = np.array([0, start, 0, STOP_END, 0, 0, 0, 0], np.int64)
+    stitch_h = st.chain(launch, start)
     n = int(stitch_h[0])
     args.n_records = n
     buf("rec_off", n, torch.int64)
@@ -304,10 +364,10 @@ def run_steps(data, start, end, n_ref, skip_mask, req_mask, read_filter,
     with timed("block_scan"):
         incl = torch.cumsum(nblk, 0)
         blk_off = incl - nblk
-    keep.append(blk_off)
+    st.keep["blk_off"] = blk_off
     args.blk_off = blk_off.data_ptr() if n else 0
-    sizes = to_host(torch.cat([incl[-1:], chunks]))
-    wait()
+    sizes = st.to_host(torch.cat([incl[-1:], chunks]))
+    st.wait()
     n_blocks = int(sizes[0]) if n else 0
     chunks_h = sizes[int(n > 0):].numpy().reshape(n_chunks, CHUNK_WORDS)
     btid = buf("btid", n_blocks, torch.int32)
@@ -323,14 +383,159 @@ def run_steps(data, start, end, n_ref, skip_mask, req_mask, read_filter,
         kept = torch.cat([slots[c * CHUNK:c * CHUNK + int(k)]
                           for c, k in enumerate(chunks_h[:, 6])]) \
             if n_chunks else slots
-        outs = [to_host(t) for t in (btid, bstart, bend, kept,
-                                     data[int(stitch_h[1]):end])]
-    wait()
-    if ms is not None:
-        ms = {k: a.elapsed_time(b) for k, (a, b) in ms.items()}
+        outs = [st.to_host(t) for t in (btid, bstart, bend, kept,
+                                        data[int(stitch_h[1]):end])]
+    st.wait()
     return SegmentScan(outs[0].numpy(), outs[1].numpy(), outs[2].numpy(),
-                       outs[3].numpy(), chunks_h, stitch_h, ms,
+                       outs[3].numpy(), chunks_h, stitch_h, st.timing(),
                        outs[4].numpy())
+
+
+# ---- the parse: the classic record reader's columns
+
+# parse_records_full's record columns, by name and type, in the order
+# ParsedSegment.columns holds them (rec_start is the records' offsets)
+PARSE_COLUMNS = (("tid", torch.int32), ("pos", torch.int32),
+                 ("flag", torch.uint16), ("mapq", torch.uint8),
+                 ("seq_len", torch.int32), ("nm", torch.int64),
+                 ("as_score", torch.int64), ("qname_hash", torch.uint64),
+                 ("aligned_cov", torch.int64), ("aligned_pair", torch.int64),
+                 ("indels", torch.int64), ("read_end", torch.int32),
+                 ("rec_start", torch.int64), ("rec_end", torch.int64))
+BLOCK_COLUMNS = ("block_read", "block_start", "block_end")  # int32
+# bytes written a record (every column above) and a block
+PARSE_RECORD_BYTES = sum(t.itemsize for _, t in PARSE_COLUMNS)
+PARSE_BLOCK_BYTES = 12
+# ScanArgs' field of each column, where its name differs
+_ARG_OF = {"seq_len": "l_seq", "indels": "ind", "rec_start": "rec_off",
+           "block_start": "bstart", "block_end": "bend"}
+# the host parse's message for a bad record (io/native.parse_records_full,
+# io/native.scan_records)
+BAD_RECORD = "Unknown aux tag type while scanning BAM record {}"
+NO_RECORD = 1 << 62  # the error words' "none"
+AS_MISSING = -(1 << 63)  # as_score of a record without AS
+
+
+@dataclass
+class ParsedSegment:
+    """One segment's parse, in host memory: `columns` holds
+    parse_records_full's arrays by name (the record columns, then the
+    blocks'), the offsets counted from `base`; `end_off` (from `base` too)
+    is the end of the last complete record; `stitch` the chain's words;
+    `timing` the card's milliseconds by step when asked for; `data` the
+    bytes of data[base:end] when asked for (the reader's batch bytes)."""
+
+    columns: dict
+    end_off: int
+    stitch: np.ndarray
+    timing: dict | None = None
+    data: np.ndarray | None = None
+
+    @property
+    def n_records(self) -> int:
+        return int(self.columns["tid"].size)
+
+
+def record_error(bad, geometry):
+    """The exception the host parse (io/bam.parse_records) raises for the
+    first bad record `bad`: BamFormatError from parse_records_full's
+    parallel decode, or ValueError from the fallback walk
+    (io/native.scan_records) that parse_records takes when any record of
+    the call has corrupt geometry (`geometry`)."""
+    from ..io.bam import BamFormatError
+    cls = ValueError if geometry else BamFormatError
+    return cls(BAD_RECORD.format(int(bad)))
+
+
+def parse_segment(data, start, end, n_ref, timing=False, base=0,
+                  keep_bytes=False):
+    """ParsedSegment of the complete records of `data` (uint8[]) in [start,
+    end), `start` a record's start, as io/bam.parse_records parses them:
+    the same columns, the same end, the same error.
+
+    A CUDA tensor goes through the kernels (the scan's speculate and
+    stitch, then the parse and its emit), on the current stream of its
+    card; the columns are copied into pinned host tensors on that stream,
+    and with keep_bytes the bytes of data[base:end] too (`timing`: the
+    steps' milliseconds by CUDA events). A CPU tensor goes through the
+    plain version. Offsets are counted from `base`. A bad record raises
+    record_error's exception, before any column comes back."""
+    global bam_parse_launches
+    start, end = _check_input(data, start, end, "bam_parse")
+    if data.device.type == "cpu":
+        return bam_parse_reference(data, start, end, n_ref, base,
+                                   keep_bytes)
+    out = run_parse_steps(data, start, end, n_ref,
+                          _card_launch(data, "bam_parse"), timing, base,
+                          keep_bytes)
+    with _count_lock:
+        bam_parse_launches += 1
+    return out
+
+
+def run_parse_steps(data, start, end, n_ref, launch, timing=False, base=0,
+                    keep_bytes=False):
+    """The parse's steps over `data`'s device, each through
+    launch(step, ScanArgs): the chain (speculate, the stitch's check and
+    walk, with PARSE_MIN_BS), the record starts, the parse, the
+    exclusive scan of the block counts (torch.cumsum), the emit. Waits
+    for the card twice before the end: for the record count, then for the
+    block count and the error words together, which raise before the emit
+    when a record is bad. The regions' lists of starts go once the starts
+    are written, before the columns are made, and the offsets are
+    computed in place, so that the card holds as little as it can while
+    the engine waits for its turn (the emit walks the regions by their
+    count and base)."""
+    st = _Steps(data, start, end, n_ref, PARSE_MIN_BS, timing)
+    args, buf, timed = st.args, st.buf, st.timed
+    stitch_h = st.chain(launch, start)
+    n = int(stitch_h[0])
+    args.n_records = n
+    rec_off = buf("rec_off", n, torch.int64)
+    with timed("starts"):
+        if n:
+            launch(STARTS, args)
+    st.release("list")
+    cols = {name: rec_off if name == "rec_start" else
+            buf(_ARG_OF.get(name, name), n, dtype)
+            for name, dtype in PARSE_COLUMNS}
+    nblk = buf("nblk", n, torch.int32)
+    perr = buf("perr", 2, torch.int64, fill=NO_RECORD)
+    with timed("parse"):
+        if n:
+            launch(PARSE, args)
+    with timed("block_scan"):
+        blk_off = torch.cumsum(nblk, 0)
+        total = blk_off[-1:].clone()
+        blk_off.sub_(nblk)
+    st.keep["blk_off"] = blk_off
+    args.blk_off = blk_off.data_ptr() if n else 0
+    sizes = st.to_host(torch.cat([total, perr]) if n else perr)
+    st.wait()
+    n_blocks = int(sizes[0]) if n else 0
+    bad, geometry = (int(x) for x in sizes[-2:])
+    if stitch_h[3] == STOP_TOO_SHORT:
+        # record n, under 32 bytes, where the chain stopped: corrupt
+        # geometry
+        bad, geometry = min(bad, n), min(geometry, n)
+    if bad != NO_RECORD:
+        raise record_error(bad, geometry != NO_RECORD)
+    blocks = {name: buf(_ARG_OF.get(name, name), n_blocks, torch.int32)
+              for name in BLOCK_COLUMNS}
+    with timed("parse_emit"):
+        if n:
+            launch(PARSE_EMIT, args)
+    with timed("d2h"):
+        if base:
+            for name in ("rec_start", "rec_end"):
+                cols[name].sub_(base)
+        outs = {name: st.to_host(t)
+                for name, t in {**cols, **blocks}.items()}
+        kept = st.to_host(data[base:end]) if keep_bytes else None
+    st.wait()
+    return ParsedSegment({k: v.numpy() for k, v in outs.items()},
+                         int(stitch_h[1]) - base, stitch_h, st.timing(),
+                         None if kept is None else kept.numpy())
 
 
 # ---- the plain version
@@ -365,7 +570,7 @@ def _plausible(d, q, end, n_ref):
     return ok & (d[name_end] == 0)
 
 
-def _speculate(d, start, end, n_regions, n_ref):
+def _speculate(d, start, end, n_regions, n_ref, min_bs):
     """Step (a) over all regions at once: (first, exit, starts), starts a
     list of each region's chain starts (int64 numpy)."""
     b = torch.arange(n_regions, dtype=torch.int64)
@@ -394,7 +599,7 @@ def _speculate(d, start, end, n_regions, n_ref):
         if not active.any():
             break
         bs = _u32(d, torch.where(active, pos, 0))
-        active &= (bs != 0) & (pos + 4 + bs <= end) & (bs >= 33)
+        active &= (bs != 0) & (pos + 4 + bs <= end) & (bs >= min_bs)
         steps.append(torch.where(active, pos, -1))
         pos = torch.where(active, pos + 4 + bs, pos)
     grid = (torch.stack(steps, 1) if steps
@@ -403,7 +608,7 @@ def _speculate(d, start, end, n_regions, n_ref):
     return first.numpy(), pos.numpy(), starts
 
 
-def _stitch(d, start, end, first, exit_, starts):
+def _stitch(d, start, end, first, exit_, starts, min_bs):
     """Step (b): the true chain region by region from the anchor, as
     csrc/bam_scan.cu stitch_tile. Returns (record offsets, stitch words)."""
     dn = d.numpy()
@@ -435,7 +640,7 @@ def _stitch(d, start, end, first, exit_, starts):
             pos, walked = e, []
             while pos < r1 and pos + 4 <= end:
                 bs = u32(pos)
-                if bs == 0 or pos + 4 + bs > end or bs < 33:
+                if bs == 0 or pos + 4 + bs > end or bs < min_bs:
                     break
                 walked.append(pos)
                 pos += 4 + bs
@@ -464,17 +669,21 @@ def _stitch(d, start, end, first, exit_, starts):
     return rec, np.array([nrec, end_off, err, stop, slow, 0, 0, 0], np.int64)
 
 
-def _aux_nm(d, aux, rec, rec_len, spans=None):
-    """scan_aux_tags' NM search for every record at once, a tag a step:
-    (nm, -1 when absent; bad, a malformed or truncated tag). `spans` (a
-    list) gains the (lo, hi) byte ranges that the search reads: each
-    tag's header and the value bytes it looks at."""
+def _aux_tags(d, aux, rec, rec_len, spans=None, want_as=False):
+    """scan_aux_tags' search for NM (and with want_as AS) for every record
+    at once, a tag a step, ending where it has found as many tags as it
+    wants: (nm, -1 when absent; as_score, INT64_MIN when absent; bad, a
+    malformed or truncated tag). `spans` (a list) gains the (lo, hi) byte
+    ranges that the search reads: each tag's header and the value bytes
+    it looks at."""
     n = aux.numel()
 
     def read(lo, hi, m):
         if spans is not None:
             spans.append((torch.where(m, lo, 0), torch.where(m, hi, 0)))
     nm = torch.full((n,), -1, dtype=torch.int64)
+    as_score = torch.full((n,), AS_MISSING, dtype=torch.int64)
+    found = torch.zeros(n, dtype=torch.int64)
     bad = torch.zeros(n, dtype=torch.bool)
     aux = torch.where((aux < 0) | (aux > rec_len), rec_len, aux)
     live = torch.ones(n, dtype=torch.bool)
@@ -484,7 +693,7 @@ def _aux_nm(d, aux, rec, rec_len, spans=None):
     while True:
         live &= aux + 3 <= rec_len
         if not live.any():
-            return nm, bad
+            return nm, as_score, bad
         at = rec + torch.where(live, aux, 0)
         read(at, at + 3, live)
         t0, t1, typ = d[at].long(), d[at + 1].long(), d[at + 2].long()
@@ -547,9 +756,13 @@ def _aux_nm(d, aux, rec, rec_len, spans=None):
         unknown = live & ~known
         bad |= unknown
         live &= ~unknown
-        found = has & (t0 == ord("N")) & (t1 == ord("M"))
-        nm = torch.where(found, val, nm)
-        live &= ~found
+        is_nm = has & (t0 == ord("N")) & (t1 == ord("M"))
+        nm = torch.where(is_nm, val, nm)
+        is_as = has & ~is_nm & (t0 == ord("A")) & (t1 == ord("S")) \
+            if want_as else torch.zeros_like(is_nm)
+        as_score = torch.where(is_as, val, as_score)
+        found += (is_nm | is_as).long()
+        live &= found < (2 if want_as else 1)
 
 
 def _analyse(d, off, n_ref, skip_mask, req_mask, read_filter, spans=None):
@@ -596,8 +809,8 @@ def _analyse(d, off, n_ref, skip_mask, req_mask, read_filter, spans=None):
     half = l_seq32 + 1  # (l_seq + 1) / 2 in int32, as the host computes it
     half = torch.div(_as_i32(half & 0xFFFFFFFF), 2, rounding_mode="trunc")
     aux = 32 + l_rn + 4 * n_cig + half + l_seq32
-    nm, bad = _aux_nm(d, torch.where(ok, aux, rec_len),
-                      rec, torch.where(ok, rec_len, 0), spans)
+    nm, _, bad = _aux_tags(d, torch.where(ok, aux, rec_len),
+                           rec, torch.where(ok, rec_len, 0), spans)
     err = geom | (ok & bad)
     ok &= ~bad
     if read_filter is not None:
@@ -688,14 +901,28 @@ def _fold(fl, tid, nb, nm, ind, idv):
             np.array(words, np.int64).reshape(-1, CHUNK_WORDS))
 
 
-def _chain(d, start, end, n_ref):
+def _chain(d, start, end, n_ref, min_bs=SCAN_MIN_BS):
     """Steps (a) and (b): (the record offsets, the stitch words)."""
     n_regions = -(-(end - start) // REGION)
     if not n_regions:
         return (np.zeros(0, np.int64),
                 np.array([0, start, 0, STOP_END, 0, 0, 0, 0], np.int64))
-    first, exit_, starts = _speculate(d, start, end, n_regions, n_ref)
-    return _stitch(d, start, end, first, exit_, starts)
+    first, exit_, starts = _speculate(d, start, end, n_regions, n_ref,
+                                      min_bs)
+    return _stitch(d, start, end, first, exit_, starts, min_bs)
+
+
+def _sectors(spans, size):
+    """The bytes of the SECTOR-byte sectors that hold a byte of one of the
+    (lo, hi) ranges of `spans`, counted from the buffer's first byte."""
+    lo = torch.cat([a.reshape(-1) for a, _ in spans])
+    hi = torch.cat([b.reshape(-1) for _, b in spans])
+    keep = hi > lo
+    first, past = lo[keep] // SECTOR, (hi[keep] - 1) // SECTOR + 1
+    mark = torch.zeros(size // SECTOR + 2, dtype=torch.int32)
+    one = torch.ones(first.numel(), dtype=torch.int32)
+    mark.index_add_(0, first, one).index_add_(0, past, -one)
+    return int((torch.cumsum(mark, 0) > 0).sum()) * SECTOR
 
 
 def bytes_read(data, start, end, n_ref, skip_mask, req_mask,
@@ -712,14 +939,7 @@ def bytes_read(data, start, end, n_ref, skip_mask, req_mask,
     spans = []
     _analyse(d, torch.from_numpy(off), int(n_ref), skip_mask, req_mask,
              read_filter, spans)
-    lo = torch.cat([a.reshape(-1) for a, _ in spans])
-    hi = torch.cat([b.reshape(-1) for _, b in spans])
-    keep = hi > lo
-    first, past = lo[keep] // SECTOR, (hi[keep] - 1) // SECTOR + 1
-    mark = torch.zeros(d.numel() // SECTOR + 2, dtype=torch.int32)
-    one = torch.ones(first.numel(), dtype=torch.int32)
-    mark.index_add_(0, first, one).index_add_(0, past, -one)
-    return int((torch.cumsum(mark, 0) > 0).sum()) * SECTOR
+    return _sectors(spans, d.numel())
 
 
 def bam_scan_reference(data, start, end, n_ref, skip_mask, req_mask,
@@ -738,3 +958,120 @@ def bam_scan_reference(data, start, end, n_ref, skip_mask, req_mask,
     return SegmentScan(btid.numpy(), bstart.numpy(), bend.numpy(), runs,
                        chunks, stitch, None,
                        d[int(stitch[1]):end].numpy().copy())
+
+
+# ---- the parse's plain version
+
+def _fnv1a(d, name0, name_len):
+    """FNV-1a of each record's read name (name_len bytes from name0), as
+    uint64 numpy: a name byte a step over all records at once."""
+    dn = d.numpy()
+    h = np.full(name0.numel(), 0xCBF29CE484222325, np.uint64)
+    at, ln = name0.numpy(), name_len.numpy()
+    with np.errstate(over="ignore"):
+        for i in range(int(ln.max(initial=0))):
+            act = ln > i
+            h[act] = (h[act] ^ dn[at[act] + i].astype(np.uint64)) \
+                * np.uint64(0x100000001B3)
+    return h
+
+
+def _parse_records(d, off, spans=None):
+    """parse_record's work for every record at once: (the record
+    columns by name, the blocks' columns, bad: a negative l_seq, corrupt
+    geometry or malformed aux tags; geometry: corrupt geometry).
+    `spans` (a list) gains the (lo, hi) byte ranges that the work reads:
+    each record's fixed fields from block_size to l_seq, and of each
+    record of sound geometry its read name, its CIGAR and its aux tags up
+    to NM and AS."""
+    n = off.numel()
+    rec = off + 4
+    rec_len = _u32(d, off)
+    tid, pos = _as_i32(_u32(d, rec)), _as_i32(_u32(d, rec + 4))
+    l_rn = d[rec + 8].long()
+    n_cig = d[rec + 12].long() | d[rec + 13].long() << 8
+    flag = d[rec + 14].long() | d[rec + 15].long() << 8
+    l_seq = _as_i32(_u32(d, rec + 16))
+    geometry = 32 + l_rn + 4 * n_cig > rec_len
+    ok = ~geometry & (l_seq >= 0)
+    name0 = rec + 32
+    name_len = torch.where(ok, torch.clamp(l_rn - 1, min=0), 0)
+    cig0 = name0 + l_rn
+    ncig_ok = torch.where(ok, n_cig, 0)
+    if spans is not None:
+        spans += [(off, rec + 20), (name0, name0 + name_len),
+                  (cig0, cig0 + 4 * ncig_ok)]
+    owner = torch.repeat_interleave(torch.arange(n), ncig_ok)
+    first_op = torch.cumsum(ncig_ok, 0) - ncig_ok
+    k = torch.arange(owner.numel()) - first_op[owner]
+    word = _u32(d, cig0[owner] + 4 * k)
+    op, ln = word & 0xF, word >> 4
+    is_m = (op == 0) | (op == 7) | (op == 8)
+
+    def per_record(mask):
+        return torch.zeros(n, dtype=torch.int64).index_add_(
+            0, owner, torch.where(mask, ln, 0))
+    ref = torch.where(is_m | (op == 2) | (op == 3), ln, 0)
+    cum = torch.cumsum(ref, 0) - ref
+    cursor = pos[owner] + cum - cum[first_op[owner]]
+    half = torch.div(_as_i32((torch.where(ok, l_seq, 0) + 1) & 0xFFFFFFFF),
+                     2, rounding_mode="trunc")
+    aux = 32 + l_rn + 4 * n_cig + half + torch.where(ok, l_seq, 0)
+    nm, as_score, aux_bad = _aux_tags(d, torch.where(ok, aux, rec_len), rec,
+                                      torch.where(ok, rec_len, 0), spans,
+                                      want_as=True)
+    wrap = lambda x: _as_i32(x & 0xFFFFFFFF).int()  # noqa: E731
+    cols = {
+        "tid": tid.int(), "pos": pos.int(), "flag": flag.to(torch.int32),
+        "mapq": d[rec + 9], "seq_len": l_seq.int(), "nm": nm,
+        "as_score": as_score, "qname_hash": _fnv1a(d, name0, name_len),
+        "aligned_cov": per_record(is_m | (op == 1) | (op == 2)),
+        "aligned_pair": per_record(is_m | (op == 1)),
+        "indels": per_record((op == 1) | (op == 2)),
+        "read_end": wrap(pos + torch.zeros(n, dtype=torch.int64).index_add_(
+            0, owner, ref)),
+        "rec_start": off, "rec_end": off + 4 + rec_len}
+    blocks = {"block_read": owner[is_m].int(),
+              "block_start": wrap(cursor[is_m]),
+              "block_end": wrap(cursor[is_m] + ln[is_m])}
+    return cols, blocks, ~ok | aux_bad, geometry
+
+
+def bam_parse_reference(data, start, end, n_ref, base=0, keep_bytes=False):
+    """Plain version of the parse: the scan's plain chain (speculate and
+    stitch, with PARSE_MIN_BS), then every record at once as tensor code
+    and the read names' hashes a byte a step in numpy; the same
+    ParsedSegment, or the same exception."""
+    d = data.cpu()
+    start, end = int(start), int(end)
+    off, stitch = _chain(d, start, end, n_ref, PARSE_MIN_BS)
+    n = off.size
+    cols, blocks, bad, geometry = _parse_records(d, torch.from_numpy(off))
+    bad, geometry = bad.numpy(), geometry.numpy()
+    if stitch[3] == STOP_TOO_SHORT:  # record n, under 32 bytes
+        bad, geometry = np.append(bad, True), np.append(geometry, True)
+    if bad.any():
+        raise record_error(np.flatnonzero(bad)[0], geometry.any())
+    out = {}
+    for name, dtype in PARSE_COLUMNS:
+        v = cols[name]
+        v = v if isinstance(v, np.ndarray) else v.numpy()
+        out[name] = v.astype(str(dtype).split(".")[1], copy=False)
+    for name in ("rec_start", "rec_end"):
+        out[name] = out[name] - base
+    out.update({k: v.numpy() for k, v in blocks.items()})
+    return ParsedSegment(out, int(stitch[1]) - base, stitch, None,
+                         d[base:end].numpy().copy() if keep_bytes else None)
+
+
+def parse_bytes_read(data, start, end, n_ref):
+    """The bytes that a parse of data[start:end) has to read, in whole
+    SECTOR-byte sectors counted from data's first byte: each record's
+    fixed fields from block_size to l_seq, its read name, its CIGAR and
+    its aux tags up to NM and AS. The sequence and the qualities are not
+    read. From the plain version's chain."""
+    d = data.cpu()
+    off, _ = _chain(d, int(start), int(end), n_ref, PARSE_MIN_BS)
+    spans = []
+    _parse_records(d, torch.from_numpy(off), spans)
+    return _sectors(spans, d.numel())

@@ -212,11 +212,15 @@ def scan_sample_batches(header: BamHeader, batches, layout: ReferenceLayout,
     i+1's host decode (prefetch thread) and h2d overlap batch i's device
     compute; the per-contig results are fetched and merged by addition
     at the end (batches are contig-disjoint, scan.merge_scans)."""
+    from .device import card_turn
     from .prefetch import prefetch_iter
 
     acc = DepthAccumulator()
     scans = []
     last_max_tid = -1
+    # the engine's dispatch takes turns with an ingest on the same card
+    # (io/bam's card route)
+    turn = card_turn(device)
     for batch in prefetch_iter(batches):
         mapped_tids = batch.tid[~batch.is_unmapped()]
         if mapped_tids.size:
@@ -225,9 +229,11 @@ def scan_sample_batches(header: BamHeader, batches, layout: ReferenceLayout,
                     "BAM file appears to be unsorted. Input BAM files must "
                     "be sorted by reference (i.e. by samtools sort)")
             last_max_tid = max(last_max_tid, int(mapped_tids.max()))
-        scans.append(scan_sample(header, batch, layout, flag_filter,
-                                 need_hist, trim=trim, device=device,
-                                 deferred=True, acc=acc, depth_fn=depth_fn))
+        with turn:
+            scans.append(scan_sample(header, batch, layout, flag_filter,
+                                     need_hist, trim=trim, device=device,
+                                     deferred=True, acc=acc,
+                                     depth_fn=depth_fn))
     acc.start_fetch()  # the whole pass is usually ONE pending fetch
     for s in scans:
         if hasattr(s.depth, "start_fetch"):
@@ -272,7 +278,7 @@ def scan_any(header, payload, layout, flag_filter, need_hist, trim=None,
             return scan_sample_fused(header, payload, layout, flag_filter,
                                      need_hist, trim=trim, device=device,
                                      depth_fn=depth_fn)
-        payload = payload.batches()
+        payload = payload.batches(device)
     return scan_sample_batches(header, payload, layout, flag_filter,
                                need_hist, trim=trim, device=device,
                                depth_fn=depth_fn)

@@ -12,7 +12,22 @@ Times, on one BAM, each stage as the best of --reps passes:
   stats scan alone  - stats_scan on inflated data, at ingest_scan's thread
                       count: the fused call less the inflate
   bookkeep          - scan.scan_sample with the depth engine stubbed
-  stream            - io/bam.BamStreamReader: inflate and parse, prefetched
+  stream            - io/bam.BamStreamReader on the device: inflate and
+                      parse, prefetched (on a CUDA device its card route)
+  classic host      - the classic reader's host route (the CPU's), its
+                      stages' seconds summed apart: native.bgzf_scan,
+                      the inflate (bgzf_inflate_blocks, on the prefetch
+                      thread), the record walk (ct_walk_complete), the
+                      parse (parse_records_full less the walk), and the
+                      joins (_cat, concat_batches)
+  classic card      - on a CUDA device the classic reader's card route:
+                      the worker's seconds staging segments, the seconds
+                      waiting for the card slot (the inflate), the inflate
+                      kernel's ms, the parse's ms by step (CUDA events:
+                      speculate, the stitch's check and walk, parse,
+                      block_scan, parse_emit, the d2h of the columns and
+                      the slot's bytes) and its wall seconds, and the
+                      joins (concat_batches)
   fused             - ingest_scan over the FusedScanStream plan, one
                       native call a segment (stream open included)
   card inflate      - ops/bgzf_inflate.SegmentInflater over the plan's
@@ -109,10 +124,13 @@ STAGES = [("bgzf_scan", "bgzf scan"), ("inflate", "inflate"),
           ("stats_scan", "stats scan alone"),
           ("bookkeep", "bookkeep (scan_sample-dev)"),
           ("stream", "stream (inflate+parse)"),
+          ("classic_host", "classic reader, host"),
           ("fused", "fused one-call ingest"),
           ("card_inflate", "card inflate alone"),
           ("host_scan_split", "host scan, split"),
           ("e2e_stub", "e2e, depth stubbed"), ("e2e", "e2e, sweep engine")]
+# the stages that run only on a card
+CARD_STAGES = [("classic_card", "classic reader, card")]
 HOST_SPLIT = ("wait", "d2h", "carry", "stats_scan", "chain_walk",
               "chunk_workers")
 SEGMENTED = ("inflate", "phase1", "full_parse", "stats_scan", "bookkeep")
@@ -295,6 +313,50 @@ def fused_pass(path):
                                 req)
         blocks += res[0].size
     return stats.n_records, blocks
+
+
+def classic_pass(path, seg_bytes, device):
+    """The classic reader (io/bam.BamStreamReader) over `path` on
+    `device`, batches dropped: (records, seconds by stage), the host
+    route's stages timed where they run and summed (the inflate on the
+    prefetch thread overlaps the rest), the card route's from the
+    reader's own timings."""
+    from ..io import bam as IB
+    from ..io import native
+    secs = dict.fromkeys(("bgzf_scan", "inflate", "walk", "parse", "cat",
+                          "concat"), 0.0)
+    lock = threading.Lock()
+    lib = native.get_lib()
+
+    def timed(key, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                with lock:
+                    secs[key] += time.perf_counter() - t0
+        return run
+    patches = [(native, "bgzf_scan", "bgzf_scan"),
+               (native, "bgzf_inflate_blocks", "inflate"),
+               (native, "parse_records_full", "parse"),
+               (IB, "_cat", "cat"), (IB, "concat_batches", "concat"),
+               (lib, "ct_walk_complete", "walk")]
+    origs = [getattr(obj, name) for obj, name, _ in patches]
+    for (obj, name, key), fn in zip(patches, origs):
+        setattr(obj, name, timed(key, fn))
+    try:
+        reader = IB.BamStreamReader(path, target_bytes=seg_bytes,
+                                    device=device, timing=True)
+        _, gen = reader.read()
+        records = sum(b.n_records for b in gen)
+    finally:
+        for (obj, name, _), fn in zip(patches, origs):
+            setattr(obj, name, fn)
+    secs["parse"] -= secs["walk"]  # the walk runs inside the parse
+    if reader.timings:
+        secs.update(reader.timings)
+    return records, secs
 
 
 def pinned_allocated(nbytes) -> int:
@@ -799,9 +861,22 @@ def profile(path, reps=3, device=None, out=print):
     stages["bookkeep"]["records"] = counts["bookkeep"]
 
     def stream():
-        _, gen = BamStreamReader(path, target_bytes=seg_bytes).read()
+        _, gen = BamStreamReader(path, target_bytes=seg_bytes,
+                                 device=dev).read()
         return sum(b.n_records for b in gen)
     stages["stream"]["records"] = best("stream", stream)
+    for key, where in (("classic_host", "cpu"), ("classic_card", dev)):
+        if key == "classic_card" and dev.type != "cuda":
+            continue
+        runs = []
+
+        def classic(where=where, runs=runs):
+            t0 = time.perf_counter()
+            got = classic_pass(path, seg_bytes, where)
+            runs.append((time.perf_counter() - t0, got))
+            return got[0]
+        stages[key]["records"] = best(key, classic)
+        stages[key]["split_s"] = min(runs, key=lambda r: r[0])[1][1]
 
     rec, blk = best("fused", lambda: fused_pass(path))
     stages["fused"].update(records=rec, blocks=blk)
@@ -888,7 +963,9 @@ def profile(path, reps=3, device=None, out=print):
     prologue["total"] = sum(prologue.values())
     prologue["batches"] = per_rep[-1][1]["batches"]
 
-    for key, label in STAGES:
+    for key, label in STAGES + CARD_STAGES:
+        if key not in stages:  # the card's stages on the CPU
+            continue
         st = stages[key]
         said = ", ".join(f"{k} {v}" for k, v in st.items()
                          if k not in ("s", "peak_rss_bytes"))

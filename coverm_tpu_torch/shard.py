@@ -36,8 +36,10 @@ class ShardedBamSource:
     """Merged best-hit view over shard BAMs (read-name sorted, paired)."""
 
     def __init__(self, bam_paths, genome_exclusion: GenomeExclusion = None,
-                 stoit_name=None):
+                 stoit_name=None, device=None):
         self.bam_paths = list(bam_paths)
+        # where the streamed shards inflate and parse (io/bam's reader)
+        self.device = device
         self.genome_exclusion = genome_exclusion or NoExclusionGenomeFilter()
         if stoit_name is None:
             stems = [os.path.basename(p)[:-4] if p.endswith(".bam")
@@ -53,7 +55,8 @@ class ShardedBamSource:
         from .modes import STREAM_THRESHOLD_BYTES
         total = sum(os.path.getsize(p) for p in self.bam_paths)
         if total >= STREAM_THRESHOLD_BYTES:
-            return stream_merge_shards(self.bam_paths, self.genome_exclusion)
+            return stream_merge_shards(self.bam_paths, self.genome_exclusion,
+                                       device=self.device)
         shards = [BamReader(p) for p in self.bam_paths]
         return merge_shards([s.header for s in shards],
                             [s.batch for s in shards], self.genome_exclusion)
@@ -62,7 +65,7 @@ class ShardedBamSource:
         pass
 
 
-def stream_merge_shards(bam_paths, genome_exclusion=None):
+def stream_merge_shards(bam_paths, genome_exclusion=None, device=None):
     """Bounded-memory deshard: shards stream in lockstep, winners are
     chosen chunk by chunk, and the merged records coordinate-sort
     through the tid-bucketed external sorter (RecordSpillSorter).
@@ -80,7 +83,7 @@ def stream_merge_shards(bam_paths, genome_exclusion=None):
     from .mapping.pipeline import RecordSpillSorter
 
     genome_exclusion = genome_exclusion or NoExclusionGenomeFilter()
-    readers = [BamStreamReader(p, cut_contigs=False).read()
+    readers = [BamStreamReader(p, cut_contigs=False, device=device).read()
                for p in bam_paths]
     headers = [h for h, _gen in readers]
     gens = [gen for _h, gen in readers]

@@ -169,7 +169,7 @@ def scan_of(path, params, ff, fused, monkeypatch):
     source's streamed scan on the CPU, the primary alignments taken as
     the modes take them (num_primary_override when set)."""
     monkeypatch.setenv("COVERM_TPU_FUSED", "1" if fused else "0")
-    source = FilteredBamFileSource(path, params, ff)
+    source = FilteredBamFileSource(path, params, ff, device="cpu")
     header, payload = source.read()
     layout = ReferenceLayout.build(header.target_lens, EE)
     try:

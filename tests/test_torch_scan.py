@@ -131,7 +131,7 @@ def test_fused_stream_matches_jax(bam, flt, need_hist):
 
 
 def test_classic_batches_match_jax(bam):
-    h, gen = BamStreamReader(bam, target_bytes=SEG).read()
+    h, gen = BamStreamReader(bam, target_bytes=SEG, device="cpu").read()
     got = T.scan_sample_batches(h, gen, ReferenceLayout.build(
         h.target_lens, EE), FlagFilter(), False, trim=TRIM, device="cpu")
     jh, jgen = JBamStreamReader(bam, target_bytes=SEG).read()

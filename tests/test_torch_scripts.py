@@ -189,8 +189,13 @@ def test_profile_ingest_counts_equal_the_jax_package(bams, segment_bytes):
     # the header probe's blocks, then segments of about segment_bytes
     assert st["inflate"]["segments"] == (2 if segment_bytes is None else 8)
     for key in ("phase1", "full_parse", "stats_scan", "bookkeep", "stream",
-                "fused"):
+                "fused", "classic_host"):
         assert st[key]["records"] == records, key
+    # the classic reader's host route, stage by stage
+    assert set(st["classic_host"]["split_s"]) == {
+        "bgzf_scan", "inflate", "walk", "parse", "cat", "concat"}
+    assert st["classic_host"]["split_s"]["inflate"] > 0
+    assert st["classic_host"]["split_s"]["walk"] > 0
     assert st["full_parse"]["blocks"] == blocks
     assert fused_records == records
     for key in ("stats_scan", "fused", "e2e_stub", "host_scan_split"):

@@ -8,7 +8,24 @@ the JAX package's reader yields (which parses a held contig again with
 every segment), the unplaced tail apart, which the port now yields as it
 comes; the raw bytes behind rec_start/rec_end must be the records', and
 the classic scan (filtered and not) must equal the JAX package's; seed 0.
+
+The reader's card route (a BGZF file on a CUDA device: each segment
+inflated into a card slot after the carry and parsed there by
+ops/bam_scan.parse_segment) runs here with a CPU stand-in for the card,
+as tests/test_torch_bam_scan.py runs the fused route's: SegmentInflater
+on the CPU, whose slots send the parse to its plain version, and the
+host's inflate (the reader's _segments) and parse_records_full made to
+fail if they are reached. It must yield the host route's batches, batch
+for batch and field for field (the bytes behind them included), at
+several segment sizes, with a header that spans segments and records
+that straddle them, parse every record once, hold the JAX reader's
+records and raise the host route's error on a corrupt BGZF block; and
+`--gff`, a pair filter, COVERM_TPU_FUSED=0 with `-m metabat` and
+`filter` must print (and write) the JAX package's bytes through it.
 """
+
+import contextlib
+import io
 
 import numpy as np
 import pytest
@@ -88,7 +105,7 @@ def test_every_record_is_parsed_once(bam, seg, monkeypatch):
         return batch, end
 
     monkeypatch.setattr(B, "parse_records", counting)
-    _, gen = B.BamStreamReader(path, target_bytes=seg).read()
+    _, gen = B.BamStreamReader(path, target_bytes=seg, device="cpu").read()
     got = list(gen)
     assert sum(seen) == n_records
     assert sum(b.n_records for b in got) == n_records
@@ -99,7 +116,7 @@ def test_every_record_is_parsed_once(bam, seg, monkeypatch):
 @pytest.mark.parametrize("seg", SEGS)
 def test_batches_hold_the_jax_readers_records(bam, seg):
     path, _ = bam
-    _, gen = B.BamStreamReader(path, target_bytes=seg).read()
+    _, gen = B.BamStreamReader(path, target_bytes=seg, device="cpu").read()
     got = list(gen)
     _, jgen = JBamStreamReader(path, target_bytes=seg).read()
     want = list(jgen)
@@ -124,7 +141,8 @@ def test_batches_hold_the_jax_readers_records(bam, seg):
 @pytest.mark.parametrize("filtered", [False, True])
 def test_classic_scan_equals_jax(bam, filtered):
     path, _ = bam
-    _, gen = B.BamStreamReader(path, target_bytes=SEGS[1]).read()
+    _, gen = B.BamStreamReader(path, target_bytes=SEGS[1],
+                                device="cpu").read()
     _, jgen = JBamStreamReader(path, target_bytes=SEGS[1]).read()
     if filtered:  # a pair filter: mates joined through _mtid
         class Src:
@@ -135,10 +153,207 @@ def test_classic_scan_equals_jax(bam, filtered):
         jgen = j_filter_payload(Src(), jgen,
                                 JFilterParams(min_percent_identity_pair=0.95),
                                 JFlagFilter())
-    h = B.BamStreamReader(path).read()[0]
+    h = B.BamStreamReader(path, device="cpu").read()[0]
     got = T.scan_sample_batches(h, gen, ReferenceLayout.build(
         h.target_lens, EE), FlagFilter(), False, device="cpu")
     want = j_scan_batches(h, jgen, JLayout.build(h.target_lens, EE),
                           JFlagFilter(), False)
     assert int(got.reads_all.sum()) > 0
     assert_scans_equal(got, want)
+
+
+# ---- the card route, the card stood in for by the CPU
+
+FIELDS = ("tid", "pos", "flag", "mapq", "nm", "as_score", "seq_len",
+          "aligned_cov", "aligned_single", "aligned_pair", "indels",
+          "read_end", "qname_hash", "rec_start", "rec_end", "block_read",
+          "block_start", "block_end")
+
+
+def use_card_standin(monkeypatch):
+    """The reader's card route with CPU tensors from here on: returns the
+    list that gains the record count of every parse_segment call; the
+    host's inflate and parse refuse."""
+    from coverm_tpu_torch.io import fastscan, native
+    from coverm_tpu_torch.ops import bam_scan as S
+    from coverm_tpu_torch.ops import bgzf_inflate as BI
+    parsed = []
+    orig = S.parse_segment
+
+    def counted(*args, **kwargs):
+        ps = orig(*args, **kwargs)
+        parsed.append(ps.n_records)
+        return ps
+
+    def refused(*args, **kwargs):
+        raise AssertionError("the card route reached the host's ingest")
+    monkeypatch.setattr(fastscan, "_card_inflater", lambda dev: (
+        lambda *args: BI.SegmentInflater(*args, "cpu")))
+    monkeypatch.setattr(S, "parse_segment", counted)
+    monkeypatch.setattr(native, "parse_records_full", refused)
+    monkeypatch.setattr(B.BamStreamReader, "_segments", refused)
+    return parsed
+
+
+def write_wide_header_bam(path, seed=1):
+    """A BAM whose header (a long @CO text and 300 contigs) spans several
+    4,000-byte BGZF blocks, then write_bam's kind of records on its first
+    five contigs."""
+    rng = np.random.default_rng(seed)
+    sam = ["@CO\t" + "x" * 9000]
+    sam += [f"@SQ\tSN:contig_{i}\tLN:{50000 + i}" for i in range(300)]
+    for t in range(5):
+        for j, s in enumerate(np.sort(rng.integers(0, 49000, 400))):
+            sam.append(f"w{t}_{j}\t{[0, 16, 99, 147][j % 4]}\tcontig_{t}\t"
+                       f"{s + 1}\t60\t100M\t=\t{s + 1}\t0\t"
+                       f"{'ACGT' * 25}\t*\tNM:i:{j % 4}\tAS:i:{90 + j % 7}")
+    data = sam_text_to_bam_data(iter(sam))
+    with open(path, "wb") as f:
+        for o in range(0, len(data), BLOCK):
+            f.write(bgzf.compress_block(data[o:o + BLOCK], 1))
+        f.write(bgzf.BGZF_EOF)
+    return path, 2000
+
+
+@pytest.fixture(scope="module")
+def wide_bam(tmp_path_factory):
+    return write_wide_header_bam(str(tmp_path_factory.mktemp("wide")
+                                     / "w.bam"))
+
+
+def assert_batches_equal(got, want):
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        for f in FIELDS:
+            x, y = getattr(a, f), getattr(b, f)
+            assert x.dtype == y.dtype, f
+            np.testing.assert_array_equal(x, y, err_msg=f)
+        np.testing.assert_array_equal(B._as_u8(a.data), B._as_u8(b.data))
+
+
+@pytest.mark.parametrize("which", ["bam", "wide_bam"])
+@pytest.mark.parametrize("seg", (*SEGS, 700, 5000))
+def test_card_route_yields_the_host_routes_batches(request, which, seg,
+                                                   monkeypatch):
+    """Batch for batch and field for field, the bytes behind rec_start
+    and rec_end included: segments of one BGZF block (700), of a block
+    and a part (5000: records straddle every cut), several blocks and
+    the whole file; on wide_bam the header spans the first segments.
+    Every record is parsed once, one parse a segment."""
+    path, n_records = request.getfixturevalue(which)
+    host = B.BamStreamReader(path, target_bytes=seg, device="cpu")
+    _, want = host.read()
+    want = list(want)
+    parsed = use_card_standin(monkeypatch)
+    header, gen = B.BamStreamReader(path, target_bytes=seg,
+                                    device="cpu").read()
+    got = list(gen)
+    assert sum(parsed) == n_records == sum(b.n_records for b in got)
+    assert header.target_names == host.header.target_names
+    assert bytes(B._as_u8(header.raw)) == bytes(B._as_u8(host.header.raw))
+    assert_batches_equal(got, want)
+    if which == "wide_bam" and seg <= 5000:
+        assert len(header.raw) > seg  # the header spans segments
+    if seg < 1 << 20:
+        assert len(parsed) > 10
+
+
+@pytest.mark.parametrize("seg", SEGS)
+def test_card_route_holds_the_jax_readers_records(bam, seg, monkeypatch):
+    path, _ = bam
+    use_card_standin(monkeypatch)
+    _, gen = B.BamStreamReader(path, target_bytes=seg, device="cpu").read()
+    got = list(gen)
+    _, jgen = JBamStreamReader(path, target_bytes=seg).read()
+    want = list(jgen)
+    assert sum((records(b) for b in got), []) == \
+        sum((records(b) for b in want), [])
+    got, want = placed(got), placed(want)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        for f in ("tid", "pos", "flag", "mapq", "nm", "as_score", "seq_len",
+                  "aligned_cov", "aligned_pair", "indels", "read_end",
+                  "qname_hash", "block_read", "block_start", "block_end"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f),
+                                          err_msg=f)
+        assert records(a) == records(b)
+
+
+def test_card_route_raises_the_host_routes_error_on_a_corrupt_block(
+        bam, tmp_path, monkeypatch):
+    """A BGZF block that cannot inflate (block type 3) raises the host
+    route's BamFormatError through the card route, with no fall-back."""
+    from coverm_tpu_torch.io import native
+    path, _ = bam
+    data = np.fromfile(path, np.uint8)
+    off, _, _ = native.bgzf_scan(data)
+    data[off[off.size // 2] + 18] |= 0x06
+    bad = str(tmp_path / "bad.bam")
+    data.tofile(bad)
+    said = []
+    for card in (False, True):
+        if card:
+            parsed = use_card_standin(monkeypatch)
+        with pytest.raises(B.BamFormatError) as e:
+            for _ in B.BamStreamReader(bad, target_bytes=SEGS[1],
+                                       device="cpu").read()[1]:
+                pass
+        said.append(str(e.value))
+    assert said[0] == said[1] == f"BGZF inflate failed in {bad}"
+    assert parsed  # the segments before the bad block were parsed
+
+
+GFF_GENES = [(t, s, s + ln) for t in (0, 1, 2, 4)
+             for s, ln in ((100, 900), (5000, 2500), (20000, 12000),
+                           (40000, 7000))]
+
+
+@pytest.mark.parametrize("case", ["gff", "pair_filter", "classic_metabat",
+                                  "filter"])
+def test_cli_through_the_card_route_prints_the_jax_bytes(
+        bam, tmp_path, monkeypatch, jax_native, case):
+    """The four routes of the classic reader, the port through the card
+    route on the CPU in 8 KiB segments, the JAX package's CLI on the
+    same BAM in the same segments: the same TSV, or for `filter` the same
+    output BAM and count line."""
+    from coverm_tpu import cli as jcli
+    from coverm_tpu import modes as jmodes
+    from coverm_tpu_torch import cli
+    from coverm_tpu_torch import modes
+    path, n_records = bam
+    gff = tmp_path / "genes.gff"
+    gff.write_text("".join(f"c{t}\tt\tgene\t{s + 1}\t{e}\t.\t+\t.\t"
+                           f"ID=g{k}\n"
+                           for k, (t, s, e) in enumerate(GFF_GENES)))
+    methods = ["-m", "mean", "trimmed_mean", "covered_fraction", "count"]
+    argv = {
+        "gff": ["contig", "--gff", str(gff), "-b", path, *methods],
+        "pair_filter": ["contig", "-b", path, *methods,
+                        "--min-read-percent-identity-pair", "96"],
+        "classic_metabat": ["contig", "-b", path, "-m", "metabat"],
+        "filter": ["filter", "-b", path, "--min-read-percent-identity-pair",
+                   "96"],
+    }[case]
+    monkeypatch.setenv("COVERM_TPU_SEGMENT_BYTES", str(SEGS[1]))
+    if case == "classic_metabat":
+        monkeypatch.setenv("COVERM_TPU_FUSED", "0")
+    monkeypatch.setattr(jmodes, "STREAM_THRESHOLD_BYTES", 1)
+    monkeypatch.setattr(modes, "STREAM_THRESHOLD_BYTES", 1)
+    outs = [str(tmp_path / "jax.out"), str(tmp_path / "port.out")]
+    parsed = use_card_standin(monkeypatch)
+    said = []
+    for run, out in ((lambda a: jcli.main(a), outs[0]),
+                     (lambda a: cli.main(a, device="cpu"), outs[1])):
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            assert run(argv + ["-o", out]) in (0, None)
+        said.append([line for line in err.getvalue().splitlines()
+                     if line.startswith("In sample")])
+    with open(outs[0], "rb") as a, open(outs[1], "rb") as b:
+        want = a.read()
+        assert b.read() == want
+    # a row a contig or gene, or the filtered BAM's records
+    assert len(want) > 1000 if case == "filter" else \
+        want.count(b"\n") >= 6
+    assert said[0] == said[1]
+    assert sum(parsed) == n_records
