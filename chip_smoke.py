@@ -147,12 +147,17 @@ Phases, in order; any failure exits non-zero:
  24. the record parse (ops/bam_scan.parse_segment, the classic reader's
      columns) column for column against the host's parse_records_full
      and its plain version on the CPU tests' streams
-     (tests/test_torch_bam_parse.py), refused ones with the host's
-     exception and message, six of them also written as BAMs and read
-     through the reader's card route against its host route; then on
-     phase 4's BAM segment by segment as the reader hands them over (the
-     slot after the carry, the header parsed on the host): its ms (CUDA
-     events around each call, and by step) beside its bound, the plain
+     (tests/test_torch_bam_parse.py), with and without the bytes,
+     refused ones with the host's exception and message, six of them
+     also written as BAMs and read through the reader's card route
+     against its host route; then on phase 4's BAM segment by segment as
+     the reader hands them over (the slot after the carry, the header
+     parsed on the host), each segment parsed without the bytes (as
+     `--gff`: the columns and the carry come back) and with them (as the
+     pair filters): its ms (CUDA events around each call, and by step,
+     the copy back apart from the kernels), the launches a segment, one
+     arena copy a parse (and one of the bytes), the card's peak around
+     each parse (max_memory_allocated), beside its bound, the plain
      version's and the copy back over the link.
 
 Phases 4 to 11 and 17 each run their command once to warm up (recording the
@@ -1799,9 +1804,11 @@ def phase_parse(bam, work, dev, card, d2h_gb_per_s):
     corrupt ones also written as BAMs and read through the reader's card
     route against its host route; then on phase 4's BAM segment by
     segment as the reader hands them over (the inflate's card slot after
-    the carry, the header parsed on the host from the first segment):
-    every column against the host parse and the plain version, timed by
-    step. Returns the kernels-line entry's measured numbers."""
+    the carry, the header parsed on the host from the first segment),
+    without the bytes and with them: every column and the carry against
+    the host parse and the plain version, timed by step, the card's peak
+    around each parse. Returns the kernels-line entry's measured
+    numbers."""
     import torch
     sys.path.insert(0, os.path.join(os.path.dirname(
         os.path.abspath(__file__)), "tests"))
@@ -1823,6 +1830,9 @@ def phase_parse(bam, work, dev, card, d2h_gb_per_s):
             torch.from_numpy(data), 0, data.size, T.N_REF))
         parse_same(f"{name} (kernels)", got, want)
         parse_same(f"{name} (plain)", plain, want)
+        bare = parse_outcome(lambda: S.parse_segment(
+            on_card, 0, data.size, T.N_REF, keep_bytes=False))
+        parse_same(f"{name} (kernels, no bytes)", bare, want)
         if isinstance(want[0], str):
             refused.append(name)
         else:
@@ -1877,15 +1887,20 @@ def phase_parse(bam, work, dev, card, d2h_gb_per_s):
         f"block raise the host route's error through the reader's card "
         f"route")
 
-    # phase 4's BAM as the reader hands it over
+    # phase 4's BAM as the reader hands it over, each segment parsed as
+    # `--gff` parses it (no bytes kept: the columns and the carry back)
+    # and as the pair filters do (the slot's bytes back too)
     mm = np.memmap(bam, np.uint8, mode="r")
     off, csz, usz = native.bgzf_scan(mm)
     segments = plan_segments(usz, 0, 1 << 28)
     inf = B.SegmentInflater(bam, off, csz, usz, segments, _CARD_HEADROOM,
                             dev)
-    rec = {"ms": 0.0, "step_ms": {}, "plain_ms": 0.0, "bytes": 0, "read": 0,
-           "written": 0, "records": 0, "blocks": 0, "back": 0,
-           "segments": 0, "launches": 0}
+    routes = {"bare": False, "kept": True}
+    rec = {"plain_ms": 0.0, "bytes": 0, "read": 0, "written": 0,
+           "records": 0, "blocks": 0, "segments": 0, "launches": 0,
+           "copies": 0}
+    rec.update({r: {"ms": 0.0, "step_ms": {}, "back": 0, "peak": 0,
+                    "above": 0} for r in routes})
     carry, n_ref = None, None
     try:
         inf.start(0)
@@ -1899,27 +1914,50 @@ def phase_parse(bam, work, dev, card, d2h_gb_per_s):
             if n_ref is None:
                 header, hdr = IB._parse_header(host[lo:hi])
                 n_ref, start = header.n_ref, lo + hdr
-            before = S.bam_parse_launches
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            ps = S.parse_segment(slot, start, hi, n_ref, timing=True,
-                                 base=lo, keep_bytes=True)
-            b.record()
-            b.synchronize()
-            rec["launches"] += S.bam_parse_launches - before
-            rec["ms"] += a.elapsed_time(b)
-            for key, v in ps.timing.items():
-                rec["step_ms"][key] = rec["step_ms"].get(key, 0.0) + v
             want = T.outcome_host(host, start, hi)
             if not isinstance(want[0], str):
                 want = ({**want[0], "rec_start": want[0]["rec_start"] - lo,
                          "rec_end": want[0]["rec_end"] - lo},
                         want[1] - lo)
-            parse_same(f"{bam} segment {k}", (ps.columns, ps.end_off), want)
-            if not np.array_equal(ps.data, host[lo:hi]):
-                raise SystemExit(f"record parse: segment {k}'s bytes came "
-                                 "back changed")
+            for route, keep in routes.items():
+                r = rec[route]
+                torch.cuda.synchronize()
+                resident = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                before = S.bam_parse_launches
+                copies = S._PINNED.copies
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                ps = S.parse_segment(slot, start, hi, n_ref, timing=True,
+                                     base=lo, keep_bytes=keep)
+                b.record()
+                b.synchronize()
+                peak = torch.cuda.max_memory_allocated(dev)
+                r["peak"] = max(r["peak"], peak)
+                r["above"] = max(r["above"], peak - resident)
+                rec["launches"] += S.bam_parse_launches - before
+                rec["copies"] += S._PINNED.copies - copies
+                r["ms"] += a.elapsed_time(b)
+                for key, v in ps.timing.items():
+                    r["step_ms"][key] = r["step_ms"].get(key, 0.0) + v
+                parse_same(f"{bam} segment {k} ({route})",
+                           (ps.columns, ps.end_off), want)
+                end_off = lo + ps.end_off
+                if not np.array_equal(ps.tail, host[end_off:hi]):
+                    raise SystemExit(f"record parse: segment {k}'s carry "
+                                     f"came back changed ({route})")
+                if keep and not np.array_equal(ps.data, host[lo:hi]):
+                    raise SystemExit(f"record parse: segment {k}'s bytes "
+                                     "came back changed")
+                if not keep and ps.data is not None:
+                    raise SystemExit(f"record parse: segment {k} came "
+                                     "back with its bytes unasked")
+                n_blocks = ps.columns["block_read"].size
+                r["back"] += S.arena_layout(
+                    ps.n_records, n_blocks,
+                    0 if keep else hi - end_off)[1] + (hi - lo if keep
+                                                       else 0)
             t0 = time.perf_counter()
             p = S.bam_parse_reference(torch.from_numpy(host), start, hi,
                                       n_ref, base=lo)
@@ -1929,43 +1967,60 @@ def phase_parse(bam, work, dev, card, d2h_gb_per_s):
             err = max(err, parse_err(ps, p))
             rec["read"] += S.parse_bytes_read(torch.from_numpy(host), start,
                                               hi, n_ref)
-            n_blocks = ps.columns["block_read"].size
             rec["written"] += S.PARSE_RECORD_BYTES * ps.n_records \
                 + S.PARSE_BLOCK_BYTES * n_blocks
-            rec["back"] += S.PARSE_RECORD_BYTES * ps.n_records \
-                + S.PARSE_BLOCK_BYTES * n_blocks + (hi - lo)
             rec["bytes"] += hi - start
             rec["records"] += ps.n_records
             rec["blocks"] += n_blocks
             rec["segments"] += 1
-            carry = ps.data[ps.end_off:]
-            del slot
+            carry = ps.tail
+            del slot, ps
     finally:
         inf.close()
-    if rec["launches"] != rec["segments"]:
+    if rec["launches"] != 2 * rec["segments"]:
         raise SystemExit(f"record parse: {rec['launches']} launches over "
-                         f"{rec['segments']} segments")
+                         f"{rec['segments']} segments parsed twice")
+    if rec["copies"] != 3 * rec["segments"]:
+        raise SystemExit(f"record parse: {rec['copies']} copies back over "
+                         f"{rec['segments']} segments parsed twice (one "
+                         "arena copy a parse, one of the bytes)")
     # the least time: the sectors that hold what the parse has to read
     # (fixed fields, names, CIGARs, aux tags up to NM and AS), read once,
-    # and the columns and blocks written once; then the columns and the
-    # slot's bytes over the link at phase 22's measured d2h rate
+    # and the columns and blocks written once; then each route's copy
+    # back over the link at phase 22's measured d2h rate
     bound_ms = (rec["read"] + rec["written"]) / H100_BYTES_PER_S * 1e3
-    link_ms = rec["back"] / (d2h_gb_per_s * 1e9) * 1e3
-    log(f"[parse] phase 4's BAM: {rec['segments']} segments, "
-        f"{rec['records']} records, {rec['blocks']} blocks, equal to "
-        f"parse_records_full and the plain version (max_abs_err {err}); "
-        f"kernels {rec['ms']:.3f} ms (steps {json.dumps(rec['step_ms'])}), "
-        f"plain version {rec['plain_ms']:.1f} ms; bound {bound_ms:.4f} ms "
-        f"(bytes: {rec['read']} read of {rec['bytes']} inflated, "
-        f"{rec['written']} written); {rec['back']} bytes back over the "
-        f"link, {link_ms:.3f} ms at {d2h_gb_per_s:.3f} GB/s; {card}")
-    return {"ms": rec["ms"], "step_ms": rec["step_ms"],
-            "plain_ms": rec["plain_ms"], "bound_ms": bound_ms,
-            "link_ms": link_ms, "max_abs_err": err, "bytes": rec["bytes"],
-            "bytes_read": rec["read"], "bytes_written": rec["written"],
-            "bytes_back": rec["back"], "records": rec["records"],
-            "blocks": rec["blocks"], "segments": rec["segments"],
-            "streams": n_streams, "refused_streams": len(refused)}
+    out = {"plain_ms": rec["plain_ms"], "bound_ms": bound_ms,
+           "max_abs_err": err, "bytes": rec["bytes"],
+           "bytes_read": rec["read"], "bytes_written": rec["written"],
+           "records": rec["records"], "blocks": rec["blocks"],
+           "segments": rec["segments"], "streams": n_streams,
+           "refused_streams": len(refused)}
+    for route in routes:
+        r = rec[route]
+        steps = r["step_ms"]
+        kernels = sum(v for key, v in steps.items() if key != "d2h")
+        link_ms = r["back"] / (d2h_gb_per_s * 1e9) * 1e3
+        log(f"[parse] phase 4's BAM ({route}: "
+            f"{'the slot bytes kept' if routes[route] else 'no bytes'}): "
+            f"{rec['segments']} segments, {rec['records']} records, "
+            f"{rec['blocks']} blocks, equal to parse_records_full and the "
+            f"plain version (max_abs_err {err}); call {r['ms']:.3f} ms, "
+            f"kernels {kernels:.3f} ms ({len(steps) - 1} launches a "
+            f"segment; steps {json.dumps(steps)}), copy back "
+            f"{steps.get('d2h', 0.0):.3f} ms of {r['back']} bytes "
+            f"({link_ms:.3f} ms at {d2h_gb_per_s:.3f} GB/s); peak "
+            f"{r['peak']} bytes, {r['above']} above what was allocated "
+            f"before the parse; plain version {rec['plain_ms']:.1f} ms; "
+            f"bound {bound_ms:.4f} ms (bytes: {rec['read']} read of "
+            f"{rec['bytes']} inflated, {rec['written']} written); {card}")
+        out[route] = {"ms": r["ms"], "kernel_ms": kernels,
+                      "step_ms": steps,
+                      "launches_a_segment": len(steps) - 1,
+                      "copy_back_ms": steps.get("d2h", 0.0),
+                      "bytes_back": r["back"], "link_ms": link_ms,
+                      "peak_bytes": r["peak"],
+                      "peak_above_resident_bytes": r["above"]}
+    return out
 
 
 def main():
@@ -2415,18 +2470,19 @@ def main():
         "launches_by_path": dict(PARSE_LAUNCHES),
         "host_inflate_and_parse_calls_by_path": dict(HOST_INGEST),
         "max_abs_err": parse["max_abs_err"],
-        "ms": parse["ms"],
-        "step_ms": parse["step_ms"],
+        # the kernels of a parse as `--gff` runs it, the copy back apart
+        "ms": parse["bare"]["kernel_ms"],
+        "step_ms": parse["bare"]["step_ms"],
         "plain_ms": parse["plain_ms"],
         "bound_ms": parse["bound_ms"],
         "bound_by": "bytes",
-        "link_ms": parse["link_ms"],
         "library_ms": None,
         "library_note": "none: no PyTorch call parses BAM records",
+        "without_bytes": parse["bare"],
+        "with_bytes": parse["kept"],
         "inflated_bytes": parse["bytes"],
         "bytes_read": parse["bytes_read"],
         "bytes_written": parse["bytes_written"],
-        "bytes_back": parse["bytes_back"],
         "records": parse["records"],
         "blocks": parse["blocks"],
         "segments": parse["segments"],

@@ -76,25 +76,49 @@
 // do: the library is built without fast math, with -prec-div=true
 // -ftz=false -fmad=false (ops/cuda_build.py).
 //
-// The parse (steps kStarts, kParse and kParseEmit) is the classic record
+// (e) The parse (steps kParse and kParseEmit) is the classic record
 // reader's ingest on the card: it takes over the host's ct_walk_complete,
 // ct_parse_phase1 and ct_parse_phase2 (native/bamdecode.cpp:220, 306, 338)
 // and writes every RecordBatch column they write, bit for bit. It reuses
 // steps (a) and (b) for the record starts, with the chain stopping at a
 // block_size under 32 (min_bs) rather than 33: the host walks on there, and
 // a record under 32 bytes always fails its geometry check, while one of 32
-// can pass it. A launch writes the record starts from the regions' lists
-// (so that the caller can let the lists go before the columns are made),
-// then a warp a region, a thread a record: the fixed fields,
-// the FNV-1a hash of the read name, the CIGAR walk (aligned lengths,
-// indels, the reference end, the count of M/=/X blocks) and the aux search
-// for NM and AS, and the first bad record and the first of corrupt
-// geometry as atomic minima (perr). Between the launches the caller takes
-// the exclusive scan of the block counts; the emit writes each record's
-// blocks with their record index. Bound: the sectors that hold each
-// record's fixed fields, read name, CIGAR and aux tags up to NM and AS
-// (never the sequence or the qualities), read once, and the columns and
-// blocks written once (ops/bam_scan.parse_bytes_read).
+// can pass it. Bound: the sectors that hold each record's fixed fields,
+// read name, CIGAR and aux tags up to NM and AS (never the sequence or the
+// qualities), read once, and the columns and blocks written once
+// (ops/bam_scan.parse_bytes_read). Two launches, a block of 256 threads a
+// 64 KiB region, a thread a record (256 at a time):
+//   parse_count: the block writes its records' starts (from the region's
+//       list, or walked from its entry when the stitch walked the region)
+//       as 16-bit offsets in the region, so that the caller can let the
+//       lists go before the columns are made, then checks each record
+//       (its geometry, its CIGAR's blocks, the aux search for NM and AS)
+//       reading from device memory only the sectors that hold them, about
+//       a third of the bytes (staging every byte, as the emit does, made
+//       this launch about 1.6 times as long on the card). The first bad
+//       record and the first of corrupt geometry are atomic minima
+//       (pwords[1], pwords[2]); a block scan sums the region's blocks.
+//       The last block to finish (a counter in
+//       pwords[3]) scans the regions' sums, thousands and not millions,
+//       into each region's first block and the total (pwords[0]), which
+//       the caller reads with the error words to size the blocks exactly.
+//   parse_emit: each record's fields are a chain of dependent loads (its
+//       name's length places its CIGAR, the CIGAR and the sequence's
+//       length its aux tags), and this launch reads most of them, so it
+//       parses from shared memory: one thread copies the region and the
+//       2 KiB after it (the window) into shared memory with one bulk copy
+//       (cp.async.bulk, completed on an mbarrier; the few bytes before and
+//       after its 16-byte aligned middle by the threads). Each record is
+//       parsed from there, with the FNV-1a hash of its read name, and its
+//       columns written, a thread a record, so that a warp's stores are 32
+//       neighbouring elements; a block scan of the block counts places
+//       each record's blocks after its region's first, staged in shared
+//       memory and stored in order when the region's blocks fit
+//       (kBlkStage), else stored where they go.
+//   A record that runs past the window (a long read, a CIGAR of thousands
+//   of operations) is read whole from device memory, never cut short. The
+//   columns and blocks lie in one arena that the caller allocates once the
+//   block count is known and copies back in one copy.
 //
 // The same source builds for the host with g++ (no __CUDACC__): each step
 // runs through the same functions (bam_scan_host), a block's threads one
@@ -141,14 +165,16 @@ enum Step {
   kAnalyse = 3,
   kFold = 4,
   kEmit = 5,
-  kStarts = 6,
-  kParse = 7,
-  kParseEmit = 8
+  kParse = 6,
+  kParseEmit = 7
 };
 // FNV-1a over the read name, as the host hashes it
 constexpr uint64_t kFnvOffset = 0xcbf29ce484222325ull;
 constexpr uint64_t kFnvPrime = 0x100000001b3ull;
 constexpr long long kAsMissing = -0x7fffffffffffffffll - 1;  // INT64_MIN
+constexpr long long kNone = 1ll << 62;  // the parse's words: no record yet
+constexpr int kStage = (int)kRegion + 2048;  // a parse window's bytes
+constexpr int kBlkStage = 512;  // blocks of a region the emit stages
 
 }  // namespace
 
@@ -188,8 +214,9 @@ struct ScanArgs {
   long long* runs;     // [chunks * kChunk][kRunWords], a chunk's from its
                        // first record's slot
   long long* chunks;   // [chunks][kChunkWords]
-  // the parse's columns (rec_off, tid, nblk, nm, ind, blk_off, bstart and
-  // bend above are its too), [n_records] unless said
+  // the parse's columns, in its arena (rec_off, the records' offsets from
+  // origin; tid, nm, ind, bstart and bend above are its too), [n_records]
+  // unless said
   int* pos;
   uint16_t* flag;
   uint8_t* mapq;
@@ -201,8 +228,13 @@ struct ScanArgs {
   int* read_end;
   long long* rec_end;
   int* block_read;     // [blocks]
-  long long* perr;     // [2] the first bad record, the first of corrupt
-                       // geometry (n_records: none)
+  // the parse's words: blocks, the first bad record, the first of corrupt
+  // geometry, regions done; all kNone at first
+  long long* pwords;   // [4]
+  long long origin;    // rec_off and rec_end count from it
+  uint16_t* roff;      // [n_records] each record's start in its region
+  long long* rblk;     // [n_regions] the blocks of the region's records
+  long long* rbase;    // [n_regions] the index of the region's first block
 };
 
 namespace {
@@ -305,6 +337,26 @@ SCAN_HD void shared_min(long long* p, long long v) {
   atomicMin(p, v);
 #else
   if (v < *p) *p = v;
+#endif
+}
+
+// *p += 1, returning what *p held (device memory: an atomic after a fence
+// that orders the block's earlier stores before it)
+SCAN_HD long long count_done(long long* p) {
+#ifdef __CUDA_ARCH__
+  __threadfence();
+  return (long long)atomicAdd(reinterpret_cast<unsigned long long*>(p), 1ull);
+#else
+  return (*p)++;
+#endif
+}
+
+// A word that another block wrote before its count_done (past the SM's L1)
+SCAN_HD long long load_fresh(const long long* p) {
+#ifdef __CUDA_ARCH__
+  return __ldcg(p);
+#else
+  return *p;
 #endif
 }
 
@@ -733,101 +785,6 @@ SCAN_HD void emit(const ScanArgs& a, long long g) {
   }
 }
 
-// ct_parse_phase2's work on record g at off: its columns and its count of
-// blocks; a record whose l_seq is negative, whose name and CIGAR run past
-// its block_size (corrupt geometry) or whose aux tags are malformed gives
-// its index to perr[0], and one of corrupt geometry also to perr[1]. The
-// chain holds only records of 32 bytes or more, so the fixed fields lie in
-// the record.
-SCAN_HD void parse_record(const ScanArgs& a, long long off, long long g) {
-  const uint8_t* rec = a.data + off + 4;
-  long long rec_len = ld_u32(a.data + off);
-  int32_t pos = (int32_t)ld_u32(rec + 4);
-  int l_rn = rec[8];
-  uint32_t n_cigar = ld_u16(rec + 12);
-  int32_t l_seq = (int32_t)ld_u32(rec + 16);
-  a.rec_end[g] = off + 4 + rec_len;
-  a.tid[g] = (int32_t)ld_u32(rec);
-  a.pos[g] = pos;
-  a.mapq[g] = rec[9];
-  a.flag[g] = (uint16_t)ld_u16(rec + 14);
-  a.l_seq[g] = l_seq;
-  a.nblk[g] = 0;
-  bool geom = 32 + (long long)l_rn + 4ll * n_cigar > rec_len;
-  if (geom || l_seq < 0) {
-    shared_min(a.perr, g);
-    if (geom) shared_min(a.perr + 1, g);
-    return;
-  }
-  uint64_t h = kFnvOffset;
-  for (int i = 0; i + 1 < l_rn; i++) {
-    h ^= rec[32 + i];
-    h *= kFnvPrime;
-  }
-  a.qname_hash[g] = h;
-  const uint8_t* cig = rec + 32 + l_rn;
-  long long cursor = pos, a_cov = 0, a_pair = 0, ind = 0;
-  int nb = 0;
-  for (uint32_t k = 0; k < n_cigar; k++) {
-    uint32_t c = ld_u32(cig + 4 * k);
-    uint32_t op = c & 0xF;
-    long long ln = c >> 4;
-    if (op == 0 || op == 7 || op == 8) {  // M, =, X: a block
-      nb++;
-      a_cov += ln;
-      a_pair += ln;
-      cursor += ln;
-    } else if (op == 1) {  // I
-      a_cov += ln;
-      a_pair += ln;
-      ind += ln;
-    } else if (op == 2) {  // D
-      a_cov += ln;
-      ind += ln;
-      cursor += ln;
-    } else if (op == 3) {  // N
-      cursor += ln;
-    }  // S, H, P and the codes above 8 move nothing
-  }
-  a.nblk[g] = nb;
-  a.aligned_cov[g] = a_cov;
-  a.aligned_pair[g] = a_pair;
-  a.ind[g] = ind;
-  a.read_end[g] = (int32_t)cursor;
-  // (l_seq + 1) / 2 in int32, as the host computes it
-  long long aux = 32 + (long long)l_rn + 4ll * n_cigar +
-                  (int32_t)((uint32_t)l_seq + 1u) / 2 + l_seq;
-  long long nm, as_score;
-  if (scan_aux_tags(rec, aux, rec_len, &nm, &as_score, true) != 0)
-    shared_min(a.perr, g);
-  a.nm[g] = nm;
-  a.as_score[g] = as_score;
-}
-
-// Record g's blocks, with its index, at its offset of the exclusive scan.
-SCAN_HD void parse_emit(const ScanArgs& a, long long g) {
-  const uint8_t* rec = a.data + a.rec_off[g] + 4;
-  int l_rn = rec[8];
-  uint32_t n_cigar = ld_u16(rec + 12);
-  const uint8_t* cig = rec + 32 + l_rn;
-  long long cursor = (int32_t)ld_u32(rec + 4);
-  long long o = a.blk_off[g];
-  for (uint32_t k = 0; k < n_cigar; k++) {
-    uint32_t c = ld_u32(cig + 4 * k);
-    uint32_t op = c & 0xF;
-    long long ln = c >> 4;
-    if (op == 0 || op == 7 || op == 8) {
-      a.block_read[o] = (int32_t)g;
-      a.bstart[o] = (int32_t)cursor;
-      a.bend[o] = (int32_t)(cursor + ln);
-      o++;
-      cursor += ln;
-    } else if (op == 2 || op == 3) {
-      cursor += ln;
-    }
-  }
-}
-
 // ---- (d) fold
 
 // the fold's scan columns: whether a record starts a run; the run words
@@ -1017,6 +974,361 @@ SCAN_HD long long n_chunks(const ScanArgs& a) {
   return (a.n_records + kChunk - 1) >> kChunkShift;
 }
 
+// ---- (e) parse
+
+struct CountShared {
+  long long x[kThreads];  // a block scan's values
+  long long warp[kThreads / 32];
+  long long tot;
+  int last;  // this block finished last
+};
+
+struct ParseShared {
+  alignas(16) uint8_t bytes[kStage + 16];  // the window, from the 16-byte
+                                           // line its first byte lies in
+  long long x[kThreads];                   // a block scan's values
+  long long warp[kThreads / 32];
+  long long tot;
+  int bread[kBlkStage], bstart[kBlkStage], bend[kBlkStage];
+  alignas(8) unsigned long long bar;  // the window copy's mbarrier
+};
+// three blocks an SM (227 KiB of shared memory, 1 KiB of it reserved a
+// block)
+static_assert(3 * (sizeof(ParseShared) + 1024) <= 232448,
+              "a parse block's shared memory");
+
+#ifdef __CUDA_ARCH__
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// One thread: the window's mbarrier expects one arrival, made with
+// bulk_load's byte count or by bulk_skip.
+__device__ __forceinline__ void bar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar))
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// One thread: `bytes` (a multiple of 16, both addresses 16-byte aligned)
+// from device memory into shared memory, completing on bar.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_skip(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(unsigned long long* bar) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(0u)
+        : "memory");
+  } while (!done);
+}
+#endif
+
+// A region's window in shared memory: sb[p - r0] is data[p] for p in
+// [r0, w1).
+struct Window {
+  const uint8_t* sb;
+  long long r0, w1;
+};
+
+// Region b's window [r0, min(r0 + kStage, end)) into s.bytes (see (e)
+// above; the host copies it with memcpy). Every thread calls it, once a
+// block.
+SCAN_HD Window stage_region(const ScanArgs& a, long long b, ParseShared& s) {
+  Window w;
+  w.r0 = a.start + (b << kLogRegion);
+  w.w1 = min_ll(w.r0 + kStage, a.end);
+  const uint8_t* g = a.data + w.r0;
+  int mis = (int)((uintptr_t)g & 15);
+  uint8_t* sb = s.bytes + mis;
+  w.sb = sb;
+  long long len = w.w1 - w.r0;
+#ifdef __CUDA_ARCH__
+  int head = (int)min_ll((16 - mis) & 15, len);
+  long long mid = (len - head) & ~15ll;
+  int tail = (int)(len - head - mid);
+  int t = threadIdx.x;
+  if (t == 0) bar_init(&s.bar);
+  __syncthreads();
+  if (t == 0) {
+    if (mid)
+      bulk_load(sb + head, g + head, (unsigned)mid, &s.bar);
+    else
+      bulk_skip(&s.bar);
+  }
+  if (t < head) sb[t] = g[t];
+  if (t >= 16 && t - 16 < tail)
+    sb[head + mid + t - 16] = g[head + mid + t - 16];
+  bar_wait(&s.bar);
+  __syncthreads();
+#else
+  memcpy(sb, g, (size_t)len);
+#endif
+  return w;
+}
+
+// The bytes of the record at off, from its block_size on: in the window
+// when it ends there, else in device memory. Its block_size always lies in
+// the window: off is a start in the region, and the window runs 2 KiB past
+// it or to the end.
+SCAN_HD const uint8_t* record_at(const ScanArgs& a, const Window& w,
+                                 long long off) {
+  const uint8_t* p = w.sb + (off - w.r0);
+  return off + 4 + (long long)ld_u32(p) <= w.w1 ? p : a.data + off;
+}
+
+struct Rec {
+  long long rec_len, a_cov, a_pair, ind, nm, as_score;
+  uint64_t hash;
+  int32_t tid, pos, l_seq, read_end;
+  int nb;
+  int bad;  // 0; 1 a bad record; 2 one of corrupt geometry
+  uint16_t flag;
+  uint8_t mapq;
+};
+
+// ct_parse_phase2's work on the record whose block_size is at p: its
+// columns (the name's hash only with `hash`) and its count of blocks. A
+// record whose l_seq is negative or whose aux tags are malformed is bad; one
+// whose name and CIGAR run past its block_size has corrupt geometry. The
+// chain holds only records of 32 bytes or more, so the fixed fields lie in
+// the record.
+SCAN_HD void read_record(const uint8_t* p, bool hash, Rec& r) {
+  const uint8_t* rec = p + 4;
+  r.rec_len = ld_u32(p);
+  r.tid = (int32_t)ld_u32(rec);
+  r.pos = (int32_t)ld_u32(rec + 4);
+  int l_rn = rec[8];
+  r.mapq = rec[9];
+  uint32_t n_cigar = ld_u16(rec + 12);
+  r.flag = (uint16_t)ld_u16(rec + 14);
+  r.l_seq = (int32_t)ld_u32(rec + 16);
+  r.nb = 0;
+  r.hash = kFnvOffset;
+  bool geom = 32 + (long long)l_rn + 4ll * n_cigar > r.rec_len;
+  r.bad = geom ? 2 : r.l_seq < 0 ? 1 : 0;
+  if (r.bad) return;
+  if (hash)
+    for (int i = 0; i + 1 < l_rn; i++) {
+      r.hash ^= rec[32 + i];
+      r.hash *= kFnvPrime;
+    }
+  const uint8_t* cig = rec + 32 + l_rn;
+  long long cursor = r.pos, a_cov = 0, a_pair = 0, ind = 0;
+  int nb = 0;
+  for (uint32_t k = 0; k < n_cigar; k++) {
+    uint32_t c = ld_u32(cig + 4 * k);
+    uint32_t op = c & 0xF;
+    long long ln = c >> 4;
+    if (op == 0 || op == 7 || op == 8) {  // M, =, X: a block
+      nb++;
+      a_cov += ln;
+      a_pair += ln;
+      cursor += ln;
+    } else if (op == 1) {  // I
+      a_cov += ln;
+      a_pair += ln;
+      ind += ln;
+    } else if (op == 2) {  // D
+      a_cov += ln;
+      ind += ln;
+      cursor += ln;
+    } else if (op == 3) {  // N
+      cursor += ln;
+    }  // S, H, P and the codes above 8 move nothing
+  }
+  r.nb = nb;
+  r.a_cov = a_cov;
+  r.a_pair = a_pair;
+  r.ind = ind;
+  r.read_end = (int32_t)cursor;
+  // (l_seq + 1) / 2 in int32, as the host computes it
+  long long aux = 32 + (long long)l_rn + 4ll * n_cigar +
+                  (int32_t)((uint32_t)r.l_seq + 1u) / 2 + r.l_seq;
+  if (scan_aux_tags(rec, aux, r.rec_len, &r.nm, &r.as_score, true) != 0)
+    r.bad = 1;
+}
+
+// Record g, at off, into the columns.
+SCAN_HD void put_columns(const ScanArgs& a, long long g, long long off,
+                         const Rec& r) {
+  a.tid[g] = r.tid;
+  a.pos[g] = r.pos;
+  a.flag[g] = r.flag;
+  a.mapq[g] = r.mapq;
+  a.l_seq[g] = r.l_seq;
+  a.nm[g] = r.nm;
+  a.as_score[g] = r.as_score;
+  a.qname_hash[g] = r.hash;
+  a.aligned_cov[g] = r.a_cov;
+  a.aligned_pair[g] = r.a_pair;
+  a.ind[g] = r.ind;
+  a.read_end[g] = r.read_end;
+  a.rec_off[g] = off - a.origin;
+  a.rec_end[g] = off + 4 + r.rec_len - a.origin;
+}
+
+// The blocks of record g (bytes at p) from the region's o-th: into the
+// block stage (staged), else at the region's first block b0 on.
+SCAN_HD void put_blocks(const ScanArgs& a, ParseShared& s, const uint8_t* p,
+                        long long g, long long o, long long b0,
+                        bool staged) {
+  const uint8_t* rec = p + 4;
+  int l_rn = rec[8];
+  uint32_t n_cigar = ld_u16(rec + 12);
+  const uint8_t* cig = rec + 32 + l_rn;
+  long long cursor = (int32_t)ld_u32(rec + 4);
+  for (uint32_t k = 0; k < n_cigar; k++) {
+    uint32_t c = ld_u32(cig + 4 * k);
+    uint32_t op = c & 0xF;
+    long long ln = c >> 4;
+    if (op == 0 || op == 7 || op == 8) {
+      int32_t lo = (int32_t)cursor, hi = (int32_t)(cursor + ln);
+      if (staged) {
+        s.bread[o] = (int32_t)g;
+        s.bstart[o] = lo;
+        s.bend[o] = hi;
+      } else {
+        a.block_read[b0 + o] = (int32_t)g;
+        a.bstart[b0 + o] = lo;
+        a.bend[b0 + o] = hi;
+      }
+      o++;
+      cursor += ln;
+    } else if (op == 2 || op == 3) {
+      cursor += ln;
+    }
+  }
+}
+
+// The parse's count for region b (see (e) above): the records' starts,
+// their checks and the region's blocks, from device memory; the last
+// block to finish scans every region's.
+SCAN_HD void count_region(const ScanArgs& a, long long b, CountShared& s) {
+  int c = a.count[b];
+  long long base = a.base[b];
+  long long r0 = a.start + (b << kLogRegion);
+  uint16_t* roff = a.roff + (c ? base : 0);
+  int k = a.rank[b];
+  if (c && k >= 0) {
+    const int* list = a.list + b * kCap + k;
+    each([&](int t) {
+      for (int i = t; i < c; i += kThreads) roff[i] = (uint16_t)list[i];
+    });
+  } else if (c) {  // the stitch walked the region: its starts from entry
+    each([&](int t) {
+      if (t) return;
+      long long pos = a.entry[b];
+      for (int i = 0; i < c; i++) {
+        roff[i] = (uint16_t)(pos - r0);
+        pos += 4 + (long long)ld_u32(a.data + pos);
+      }
+    });
+  }
+  each([&](int t) {
+    long long nb = 0;
+    for (int i = t; i < c; i += kThreads) {
+      Rec r;
+      read_record(a.data + r0 + roff[i], false, r);
+      if (r.bad) {
+        shared_min(a.pwords + 1, base + i);
+        if (r.bad == 2) shared_min(a.pwords + 2, base + i);
+      }
+      nb += r.nb;
+    }
+    s.x[t] = nb;
+  });
+  block_scan<1>(s.x, s.warp, &s.tot);
+  each([&](int t) {
+    if (t) return;
+    a.rblk[b] = s.tot;
+    s.last = count_done(a.pwords + 3) == kNone + a.n_regions - 1;
+  });
+  if (!s.last) return;
+  // a thread a run of `per` regions: their sum, one block scan, then each
+  // region's first block along the run
+  long long per = (a.n_regions + kThreads - 1) / kThreads;
+  each([&](int t) {
+    long long sum = 0, r1 = min_ll((t + 1) * per, a.n_regions);
+    for (long long r = t * per; r < r1; r++) sum += load_fresh(a.rblk + r);
+    s.x[t] = sum;
+  });
+  block_scan<1>(s.x, s.warp, &s.tot);
+  each([&](int t) {
+    long long o = s.x[t], r1 = min_ll((t + 1) * per, a.n_regions);
+    for (long long r = t * per; r < r1; r++) {
+      a.rbase[r] = o;
+      o += load_fresh(a.rblk + r);
+    }
+  });
+  each([&](int t) {
+    if (!t) a.pwords[0] = s.tot;
+  });
+}
+
+// The parse's emit for region b (see (e) above): every column of its
+// records and their blocks.
+SCAN_HD void emit_region(const ScanArgs& a, long long b, ParseShared& s) {
+  int c = a.count[b];
+  if (!c) return;  // the whole block
+  long long base = a.base[b], b0 = a.rbase[b], n_blk = a.rblk[b];
+  bool staged = n_blk <= kBlkStage;
+  const uint16_t* roff = a.roff + base;
+  Window w = stage_region(a, b, s);
+  long long carry = 0;
+  for (int t0 = 0; t0 < c; t0 += kThreads) {
+    each([&](int t) {
+      int i = t0 + t;
+      s.x[t] = 0;
+      if (i >= c) return;
+      long long off = w.r0 + roff[i];
+      Rec r;
+      read_record(record_at(a, w, off), true, r);
+      put_columns(a, base + i, off, r);
+      s.x[t] = r.nb;
+    });
+    block_scan<1>(s.x, s.warp, &s.tot);
+    each([&](int t) {
+      int i = t0 + t;
+      if (i >= c) return;
+      put_blocks(a, s, record_at(a, w, w.r0 + roff[i]), base + i,
+                 carry + s.x[t], b0, staged);
+    });
+    carry += s.tot;
+  }
+  if (staged)
+    each([&](int t) {
+      for (long long j = t; j < n_blk; j += kThreads) {
+        a.block_read[b0 + j] = s.bread[j];
+        a.bstart[b0 + j] = s.bstart[j];
+        a.bend[b0 + j] = s.bend[j];
+      }
+    });
+}
+
 }  // namespace
 
 #ifdef __CUDACC__
@@ -1079,8 +1391,7 @@ __global__ void __launch_bounds__(256) bam_scan_stitch_walk(ScanArgs a) {
   if (threadIdx.x == 0) stitch_finish(a, s, from);
 }
 
-// mode 0 analyse (the record starts first), 1 emit, 2 the record starts
-// alone, 3 parse, 4 the parse's emit: a warp a region
+// mode 0 analyse (the record starts first), 1 emit: a warp a region
 __global__ void __launch_bounds__(32 * kWarps)
     bam_scan_records(ScanArgs a, int mode) {
   int lane = threadIdx.x & 31;
@@ -1088,10 +1399,7 @@ __global__ void __launch_bounds__(32 * kWarps)
   if (b >= a.n_regions) return;
   int c = a.count[b];
   long long base = a.base[b];
-  if (mode == 3) {
-    for (int i = lane; i < c; i += 32)
-      parse_record(a, a.rec_off[base + i], base + i);
-  } else if (mode == 0 || mode == 2) {
+  if (mode == 0) {
     int k = a.rank[b];
     if (k >= 0) {
       long long r0 = a.start + (b << kLogRegion);
@@ -1105,19 +1413,26 @@ __global__ void __launch_bounds__(32 * kWarps)
       }
     }
     __syncwarp();
-    if (mode == 0)
-      for (int i = lane; i < c; i += 32)
-        analyse(a, a.rec_off[base + i], base + i);
+    for (int i = lane; i < c; i += 32)
+      analyse(a, a.rec_off[base + i], base + i);
   } else {
     for (int i = lane; i < c; i += 32) {
       long long g = base + i;
-      if (!a.nblk[g]) continue;
-      if (mode == 1)
-        emit(a, g);
-      else
-        parse_emit(a, g);
+      if (a.nblk[g]) emit(a, g);
     }
   }
+}
+
+// the parse's two launches, a block a region (see (e) above)
+__global__ void __launch_bounds__(kThreads) bam_scan_parse_count(ScanArgs a) {
+  __shared__ CountShared s;
+  count_region(a, blockIdx.x, s);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    bam_scan_parse_emit(ScanArgs a) {
+  extern __shared__ __align__(16) unsigned char parse_smem[];
+  emit_region(a, blockIdx.x, *reinterpret_cast<ParseShared*>(parse_smem));
 }
 
 __global__ void __launch_bounds__(kThreads) bam_scan_fold(ScanArgs a) {
@@ -1154,16 +1469,22 @@ int bam_scan_launch(int step, const ScanArgs* args, int device,
       break;
     case kAnalyse:
     case kEmit:
-    case kStarts:
-    case kParse:
-    case kParseEmit: {
-      int mode = step == kAnalyse ? 0
-                 : step == kEmit  ? 1
-                 : step == kStarts ? 2
-                 : step == kParse ? 3
-                                  : 4;
       if (region_blocks)
-        bam_scan_records<<<region_blocks, 32 * kWarps, 0, st>>>(a, mode);
+        bam_scan_records<<<region_blocks, 32 * kWarps, 0, st>>>(
+            a, step == kAnalyse ? 0 : 1);
+      break;
+    case kParse:
+      if (a.n_regions)
+        bam_scan_parse_count<<<(unsigned)a.n_regions, kThreads, 0, st>>>(a);
+      break;
+    case kParseEmit: {
+      int smem = (int)sizeof(ParseShared);
+      err = cudaFuncSetAttribute(bam_scan_parse_emit,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+      if (err != cudaSuccess) return 2000 + (int)err;
+      if (a.n_regions)
+        bam_scan_parse_emit<<<(unsigned)a.n_regions, kThreads, smem, st>>>(a);
       break;
     }
     case kFold:
@@ -1219,7 +1540,6 @@ int bam_scan_host(int step, const ScanArgs* args) {
       return 0;
     }
     case kAnalyse:
-    case kStarts:
       for (long long b = 0; b < a.n_regions; b++) {
         int c = a.count[b];
         long long pos = a.entry[b];
@@ -1232,14 +1552,21 @@ int bam_scan_host(int step, const ScanArgs* args) {
             a.rec_off[g] = pos;
             pos += 4 + (long long)ld_u32(a.data + pos);
           }
-          if (step == kAnalyse) analyse(a, a.rec_off[g], g);
+          analyse(a, a.rec_off[g], g);
         }
       }
       return 0;
-    case kParse:
-      for (long long g = 0; g < a.n_records; g++)
-        parse_record(a, a.rec_off[g], g);
+    case kParse: {
+      CountShared s;
+      for (long long b = 0; b < a.n_regions; b++) count_region(a, b, s);
       return 0;
+    }
+    case kParseEmit: {
+      ParseShared* s = new ParseShared;
+      for (long long b = 0; b < a.n_regions; b++) emit_region(a, b, *s);
+      delete s;
+      return 0;
+    }
     case kFold: {
       FoldShared* s = new FoldShared;
       for (long long ch = 0; ch < n_chunks(a); ch++) fold_chunk(a, ch, *s);
@@ -1249,10 +1576,6 @@ int bam_scan_host(int step, const ScanArgs* args) {
     case kEmit:
       for (long long g = 0; g < a.n_records; g++)
         if (a.nblk[g]) emit(a, g);
-      return 0;
-    case kParseEmit:
-      for (long long g = 0; g < a.n_records; g++)
-        if (a.nblk[g]) parse_emit(a, g);
       return 0;
     default:
       return -1;
@@ -1267,6 +1590,7 @@ extern "C" {
 
 // The layout constants the wrapper sizes its buffers by.
 int bam_scan_region_bytes() { return (int)kRegion; }
+int bam_scan_stage_bytes() { return kStage; }
 int bam_scan_region_cap() { return kCap; }
 int bam_scan_args_bytes() { return (int)sizeof(ScanArgs); }
 

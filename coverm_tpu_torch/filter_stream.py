@@ -26,8 +26,8 @@ import numpy as np
 
 from .io import bgzf
 from .io.bam import (BamStreamReader, TruncatedHeaderError,
-                     concat_batches)
-from .readfilter import apply_read_filter
+                     concat_batches, record_bytes)
+from .readfilter import apply_read_filter, reads_whole_records
 
 
 class _HeaderCopier:
@@ -106,10 +106,9 @@ def stream_filter_bam(in_path: str, out_path: str, params, flag_filters,
     `device` (device.resolve_device: None is the card), each once.
 
     Returns (n_kept, n_total)."""
-    filtering_single, filtering_pairs = params.filtering_modes(flag_filters)
     # anything that is not single-only runs the pair path (filter.rs:88)
     # and therefore needs same-contig mates inside one batch
-    filtering_pairs = not (filtering_single and not filtering_pairs)
+    filtering_pairs = reads_whole_records(params, flag_filters)
     reader = BamStreamReader(in_path, target_bytes=target_bytes,
                              device=device)
     kept = total = 0
@@ -136,7 +135,7 @@ def stream_filter_bam(in_path: str, out_path: str, params, flag_filters,
                                             filter_out=not inverse)
             total += batch.n_records
             kept += int(np.count_nonzero(keep))
-            data = batch.data
+            data = record_bytes(batch)
             if len(order) == 0:
                 return
             # coalesce adjacent kept records into single writes
@@ -151,7 +150,7 @@ def stream_filter_bam(in_path: str, out_path: str, params, flag_filters,
         # held: the parsed rows of the trailing open contig (pairs), emitted
         # when it closes
         held = []
-        for _buf, batch, _end, last in reader.parsed(header_at):
+        for batch, _tail, last in reader.parsed(header_at):
             if batch.n_records == 0:
                 continue
             if not filtering_pairs:

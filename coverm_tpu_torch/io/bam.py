@@ -106,7 +106,9 @@ class RecordBatch:
     block_read: np.ndarray
     block_start: np.ndarray
     block_end: np.ndarray
-    data: bytes = b""  # decoded BAM byte stream (for record re-emission)
+    # decoded BAM byte stream (for record re-emission); None when the
+    # reader was asked not to keep it (BamStreamReader keep_bytes=False)
+    data: bytes | None = b""
 
     # ---- flag helpers (vectorised) ----
     def is_unmapped(self):
@@ -163,12 +165,24 @@ class RecordBatch:
     def qnames(self) -> list:
         """Decode query names (slow path; used by pair-filtering)."""
         out = []
-        data = self.data
+        data = record_bytes(self)
         for s in self.rec_start:
             l_read_name = data[s + 12]
             off = s + 36
             out.append(bytes(data[off:off + l_read_name - 1]).decode())
         return out
+
+
+def record_bytes(batch) -> np.ndarray:
+    """The decoded bytes behind a batch's rec_start/rec_end, as uint8;
+    raises on a batch read without them (BamStreamReader
+    keep_bytes=False)."""
+    if batch.data is None:
+        raise ValueError(
+            "this batch was read without its records' bytes "
+            "(BamStreamReader keep_bytes=False); a reader of whole records "
+            "needs keep_bytes=True")
+    return _as_u8(batch.data)
 
 
 # the read-level arrays of a RecordBatch but the two raw-byte offsets
@@ -182,14 +196,17 @@ def concat_batches(pieces) -> RecordBatch:
     records' raw bytes are copied into one buffer, rec_start/rec_end
     rebased into it (readfilter._mtid and the `filter` subcommand read
     raw records through them) and block_read offset by the rows before
-    each piece."""
+    each piece. Batches without their bytes (data None) give one without
+    them: the offsets rebased alike, no byte copied."""
     if len(pieces) == 1:
         return pieces[0]
+    keep = all(b.data is not None for b in pieces)
     datas, rec_start, rec_end, block_read = [], [], [], []
     base = rows = 0
     for b in pieces:
         lo, hi = int(b.rec_start[0]), int(b.rec_end[-1])
-        datas.append(_as_u8(b.data)[lo:hi])
+        if keep:
+            datas.append(_as_u8(b.data)[lo:hi])
         rec_start.append(b.rec_start - lo + base)
         rec_end.append(b.rec_end - lo + base)
         block_read.append(b.block_read + np.int32(rows))
@@ -200,7 +217,8 @@ def concat_batches(pieces) -> RecordBatch:
     return RecordBatch(
         n_records=rows, **cols,
         rec_start=np.concatenate(rec_start), rec_end=np.concatenate(rec_end),
-        block_read=np.concatenate(block_read), data=np.concatenate(datas))
+        block_read=np.concatenate(block_read),
+        data=np.concatenate(datas) if keep else None)
 
 
 def _u32_gather(arr: np.ndarray, offs: np.ndarray) -> np.ndarray:
@@ -558,20 +576,28 @@ class BamStreamReader:
     `device` (device.resolve_device: None is the card) says where a BGZF
     file's segments inflate and parse: on a CUDA device the card's inflate
     kernel puts each segment into a card slot after the carry, the card's
-    parse (ops/bam_scan.parse_segment) writes the columns, and they and
-    the slot's bytes come back into pinned host memory; the header is
-    parsed on the host from the first segment's bytes, and the carry stays
-    in host memory. The slot and the parse's buffers live only inside the
-    card's turn (device.card_turn), which the engine's dispatch takes too.
-    There is no fall-back to the host there. On the CPU the host inflates
-    (native threads) and parses (parse_records_full). The segments are cut
-    alike on both, so are the batches. CRAM, and BGZF without the native
-    library (the portable zlib path), stay on the host. With `timing` the
-    card route keeps its seconds and milliseconds in `timings`.
+    parse (ops/bam_scan.parse_segment) writes the columns, and they come
+    back into pinned host memory; the header is parsed on the host from
+    the first segment's bytes, and the carry stays in host memory. The
+    slot and the parse's buffers live only inside the card's turn
+    (device.card_turn), which the engine's dispatch takes too. There is
+    no fall-back to the host there. On the CPU the host inflates (native
+    threads) and parses (parse_records_full). The segments are cut alike
+    on both, so are the batches. CRAM, and BGZF without the native library
+    (the portable zlib path), stay on the host. With `timing` the card
+    route keeps its seconds and milliseconds in `timings`.
+
+    `keep_bytes` keeps each batch's decoded bytes (RecordBatch.data) for
+    the consumers that read records whole: the pair filters
+    (readfilter._mtid, RecordBatch.qnames), `filter` and the shard merge.
+    Without them (data None) the card route copies back only the
+    columns and the carry, and the joins of a held contig's rows copy no
+    bytes; a reader of whole records then raises (record_bytes).
     """
 
     def __init__(self, path: str, target_bytes: int = 1 << 28,
-                 cut_contigs: bool = True, device=None, timing=False):
+                 cut_contigs: bool = True, device=None, timing=False,
+                 keep_bytes: bool = True):
         self.path = path
         self.target_bytes = int(target_bytes)
         # cut_contigs=False yields plain complete-record segment batches
@@ -580,6 +606,7 @@ class BamStreamReader:
         self.cut_contigs = cut_contigs
         self.device = device
         self.timing = timing
+        self.keep_bytes = keep_bytes
         self.timings = {}
         self.header = None
 
@@ -645,11 +672,12 @@ class BamStreamReader:
                 yield b"".join(pend)
 
     def parsed(self, header_at):
-        """(buf, batch, end_off, last) for each segment in file order: its
-        bytes after the carry, the batch of its complete records parsed
-        from the start that header_at gives, and where they end; `last`
-        marks the bytes left after the last segment (parsed when there are
-        any). header_at(buf, final) -> (start, n_ref) reads the header
+        """(batch, tail, last) for each segment in file order: the batch
+        of its complete records (after the carry) parsed from the start
+        that header_at gives, with its bytes when keep_bytes, and the bytes
+        after them (the next carry); `last` marks the bytes left after the
+        last segment (parsed when there are any). header_at(buf, final) ->
+        (start, n_ref) reads the header
         from the first bytes: n_ref None while it spans beyond buf (buf
         from `start` is then carried whole); with final (the bytes left
         at the end) it raises on a header cut short, or gives n_ref None
@@ -686,19 +714,25 @@ class BamStreamReader:
                     continue
             batch, end_off = parse_records(buf, start)
             carry = buf[end_off:]
-            yield buf, batch, end_off, False
+            yield self._bytes_kept(batch), carry, False
         if n_ref is None:
             start, n_ref = header_at(carry, True)
             carry = carry[start:] if start else carry
         if n_ref is not None and len(carry):
             batch, end_off = parse_records(carry, 0)
-            yield carry, batch, end_off, True
+            yield self._bytes_kept(batch), carry[end_off:], True
+
+    def _bytes_kept(self, batch):
+        if not self.keep_bytes:
+            batch.data = None
+        return batch
 
     def _card_parsed(self, make, table, header_at):
         """_host_parsed's segments, each inflated into a card slot after
         the carry (ops/bgzf_inflate.SegmentInflater) and parsed there
-        (ops/bam_scan.parse_segment), the columns and the slot's bytes
-        copied back into pinned host memory, all inside the card's turn."""
+        (ops/bam_scan.parse_segment), the columns and the carry (with
+        keep_bytes the slot's bytes instead) copied back into pinned host
+        memory, all inside the card's turn."""
         import torch
 
         from ..device import card_turn
@@ -712,7 +746,7 @@ class BamStreamReader:
         if self.timing:
             t.update(segments=0, records=0, parse_s=0.0, parse_ms={})
 
-        def parse(slot, start, hi, n_ref, base, keep_bytes=True):
+        def parse(slot, start, hi, n_ref, base, keep_bytes):
             t0 = time.perf_counter()
             ps = bam_scan.parse_segment(slot, start, hi, n_ref,
                                         timing=self.timing, base=base,
@@ -744,14 +778,18 @@ class BamStreamReader:
                             buf = _host_bytes(slot[lo:hi])
                             start, n_ref = header_at(buf, False)
                         ps = None if n_ref is None else parse(
-                            slot, lo + start, hi, n_ref, lo, buf is None)
+                            slot, lo + start, hi, n_ref, lo,
+                            self.keep_bytes and buf is None)
                     del slot
                 if ps is None:  # the header spans beyond this segment
                     carry = buf[start:]
                     continue
-                buf = ps.data if buf is None else buf
-                carry = buf[ps.end_off:]
-                yield buf, batch_of_columns(ps.columns, buf), ps.end_off, \
+                if buf is None:
+                    buf, carry = ps.data, ps.tail
+                else:  # the first segment's bytes, on the host already
+                    carry = buf[ps.end_off:]
+                yield batch_of_columns(
+                    ps.columns, buf if self.keep_bytes else None), carry, \
                     False
             if self.timing:
                 t.update(slot_wait_s=inf.wait_s, stage_s=inf.stage_s,
@@ -767,8 +805,9 @@ class BamStreamReader:
                             carry)).to(inf.device)
                         ps = parse(tail, 0, tail.numel(), n_ref, 0, False)
                         del tail
-                yield carry, batch_of_columns(ps.columns, carry), \
-                    ps.end_off, True
+                yield batch_of_columns(
+                    ps.columns, carry if self.keep_bytes else None), \
+                    carry[ps.end_off:], True
         finally:
             inf.close()
 
@@ -790,11 +829,11 @@ class BamStreamReader:
         # it closes. Every record is parsed once.
         held = []
         said = False
-        for buf, batch, end_off, last in self.parsed(self._header_at):
+        for batch, tail, last in self.parsed(self._header_at):
             if not said:
                 yield self.header
                 said = True
-            check_stuck_zero(buf, end_off)
+            check_stuck_zero(tail, 0)
             if batch.n_records == 0:
                 continue
             if last:

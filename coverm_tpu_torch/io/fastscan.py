@@ -101,6 +101,9 @@ class FusedScanStream:
         self._cram = None
         self._plan = None
         self._filter = None  # (source, params, flag_filters)
+        # whether the classic batches keep their bytes: only under a read
+        # filter that reads records whole (readfilter.reads_whole_records)
+        self._whole = False
 
     def filtered(self, source, params, flag_filters):
         """This stream's payload under a filtered source's read filter
@@ -111,13 +114,14 @@ class FusedScanStream:
         the filter, so source.num_primary_override stays None. Else (pair
         filters join mates; CRAM) the classic batches through
         readfilter.filter_payload, which sets it."""
-        from ..readfilter import filter_payload
+        from ..readfilter import filter_payload, reads_whole_records
 
         if (self._plan is not None and fused_available()
                 and params.filtering_modes(flag_filters) == (True, False)):
             self._filter = (source, params, flag_filters)
             source.num_primary_override = None
             return self
+        self._whole = reads_whole_records(params, flag_filters)
         return filter_payload(source, self, params, flag_filters)
 
     @property
@@ -129,12 +133,16 @@ class FusedScanStream:
     def batches(self, device=None):
         """The classic reader's batches (under the stream's read filter),
         inflated and parsed on `device`, else the stream's own device
-        (device.resolve_device: None is the card)."""
+        (device.resolve_device: None is the card); with their bytes only
+        when the filter that the stream was given reads records whole (a
+        pair filter), so that `--gff` and the single-read filters copy
+        back only the columns."""
         from ..readfilter import filter_payload
 
         header, gen = BamStreamReader(
             self.path, target_bytes=self.target_bytes,
-            device=self.device if device is None else device).read()
+            device=self.device if device is None else device,
+            keep_bytes=self._whole).read()
         if self._filter is None:
             return gen
         source, params, flag_filters = self._filter

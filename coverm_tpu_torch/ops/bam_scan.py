@@ -24,10 +24,13 @@ return a SegmentScan.
 parse on the same chain: every column of the host's parse_records_full
 (native/bamdecode.cpp ct_walk_complete, ct_parse_phase1 and
 ct_parse_phase2) and the coverage blocks with their record index, bit for
-bit, or the exception the host parse raises for the same bytes. Six
-launches (speculate, the stitch's check and walk, the record starts, the
-parse and its emit) for a CUDA tensor; the plain version,
-`bam_parse_reference`, for a CPU tensor. Both return a ParsedSegment.
+bit, or the exception the host parse raises for the same bytes. Five
+launches (speculate, the stitch's check and walk, the parse and its emit,
+each region's window staged in shared memory) for a CUDA tensor, the
+columns and blocks in one device arena that comes back in one copy into a
+reused pinned buffer, with the slot's bytes only when the caller asks for
+them; the plain version, `bam_parse_reference`, for a CPU tensor. Both
+return a ParsedSegment.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import threading
+import weakref
 from dataclasses import dataclass
 
 import numpy as np
@@ -44,6 +48,7 @@ from . import cuda_build
 
 SOURCE = cuda_build.SOURCES[2]  # csrc/bam_scan.cu
 REGION = 1 << 16        # bytes a region of the speculation
+STAGE = REGION + 2048   # bytes of a region's window that the parse stages
 CAP = (REGION - 1) // 36 + 1  # record starts a region can hold
 # the chain stops at a block_size below this (and at 0): the scan's, and
 # the parse's (the host parse walks on past a record of 32 bytes)
@@ -61,12 +66,13 @@ STOP_END, STOP_ZERO, STOP_PAST_END, STOP_TOO_SHORT = range(4)
 PRIMARY, NONSUPP, HAS_IDV, COUNTED, ERROR = 1, 2, 4, 8, 16
 # the launches, by csrc/bam_scan.cu enum Step
 STEPS = ("speculate", "stitch", "stitch_walk", "analyse", "fold", "emit")
-STARTS, PARSE, PARSE_EMIT = 6, 7, 8  # the parse's own launches
-STEP_NAMES = STEPS + ("starts", "parse", "parse_emit")
+PARSE, PARSE_EMIT = 6, 7  # the parse's own launches
+STEP_NAMES = STEPS + ("parse_count", "parse_emit")
 SECTOR = 32  # bytes of the card's smallest memory access (bytes_read)
 
 # scans by the CUDA kernels (one a segment: its six launches), and parses
-# (one a segment: five launches); the plain versions do not count
+# (one a segment: five launches: speculate, the stitch's check and walk,
+# parse_count, parse_emit); the plain versions do not count
 bam_scan_launches = 0
 bam_parse_launches = 0
 
@@ -98,7 +104,8 @@ class ScanArgs(ctypes.Structure):
                 ("l_seq", _vp), ("as_score", _vp), ("qname_hash", _vp),
                 ("aligned_cov", _vp), ("aligned_pair", _vp),
                 ("read_end", _vp), ("rec_end", _vp), ("block_read", _vp),
-                ("perr", _vp)]
+                ("pwords", _vp), ("origin", _i64), ("roff", _vp),
+                ("rblk", _vp), ("rbase", _vp)]
 
 
 def _load():
@@ -116,6 +123,7 @@ def _load():
 
 def _check_layout(lib):
     if (lib.bam_scan_region_bytes() != REGION
+            or lib.bam_scan_stage_bytes() != STAGE
             or lib.bam_scan_region_cap() != CAP
             or lib.bam_scan_args_bytes() != ctypes.sizeof(ScanArgs)):
         raise RuntimeError("csrc/bam_scan.cu and ops/bam_scan.py disagree "
@@ -298,6 +306,16 @@ class _Steps:
         h.copy_(t, non_blocking=self.cuda)
         return h
 
+    def arena_back(self, arena, raw):
+        """(owner, kept): the parse's arena in host memory, as an object
+        that np.frombuffer reads (_views), and `raw` (the slot's bytes,
+        or None) as a numpy array. On a card one copy each into one
+        buffer of the module's PinnedPool (copy_back); on the CPU the
+        arena itself and a copy of raw."""
+        if not self.cuda:
+            return arena.numpy(), None if raw is None else raw.numpy().copy()
+        return _PINNED.copy_back(arena, raw)
+
     def wait(self):
         if self.cuda:
             torch.cuda.current_stream(self.dev).synchronize()
@@ -412,8 +430,9 @@ _ARG_OF = {"seq_len": "l_seq", "indels": "ind", "rec_start": "rec_off",
 # the host parse's message for a bad record (io/native.parse_records_full,
 # io/native.scan_records)
 BAD_RECORD = "Unknown aux tag type while scanning BAM record {}"
-NO_RECORD = 1 << 62  # the error words' "none"
+NO_RECORD = 1 << 62  # the parse's words' "none" (csrc/bam_scan.cu kNone)
 AS_MISSING = -(1 << 63)  # as_score of a record without AS
+ARENA_ALIGN = 256  # each of the arena's columns starts at a multiple
 
 
 @dataclass
@@ -423,13 +442,16 @@ class ParsedSegment:
     blocks'), the offsets counted from `base`; `end_off` (from `base` too)
     is the end of the last complete record; `stitch` the chain's words;
     `timing` the card's milliseconds by step when asked for; `data` the
-    bytes of data[base:end] when asked for (the reader's batch bytes)."""
+    bytes of data[base:end] when asked for (the reader's batch bytes),
+    else None; `tail` the bytes after end_off, the next segment's
+    carry."""
 
     columns: dict
     end_off: int
     stitch: np.ndarray
     timing: dict | None = None
     data: np.ndarray | None = None
+    tail: np.ndarray | None = None
 
     @property
     def n_records(self) -> int:
@@ -447,6 +469,101 @@ def record_error(bad, geometry):
     return cls(BAD_RECORD.format(int(bad)))
 
 
+def arena_layout(n, n_blocks, tail):
+    """{name: (byte offset, count, dtype)} of the parse's arena and its
+    size in bytes: the record columns (PARSE_COLUMNS), the blocks'
+    (BLOCK_COLUMNS) and `tail` bytes of carry, each from a multiple of
+    ARENA_ALIGN."""
+    layout, at = {}, 0
+    parts = [(name, n, dtype) for name, dtype in PARSE_COLUMNS]
+    parts += [(name, n_blocks, torch.int32) for name in BLOCK_COLUMNS]
+    for name, count, dtype in parts + [("tail", tail, torch.uint8)]:
+        layout[name] = (at, int(count), dtype)
+        at += -(-int(count) * dtype.itemsize // ARENA_ALIGN) * ARENA_ALIGN
+    return layout, at
+
+
+class _Lease:
+    """A pinned buffer's bytes handed out for one segment: the numpy
+    arrays made from it (np.frombuffer) keep it alive, and the buffer is
+    handed out again only once the lease is gone."""
+
+    def __init__(self, buf, nbytes):
+        self._view = buf[:nbytes].numpy()
+
+    def __buffer__(self, flags):
+        return memoryview(self._view)
+
+    def __release_buffer__(self, view):
+        view.release()
+
+
+class PinnedPool:
+    """Pinned host buffers that the parse's copies back reuse: one a
+    segment in flight or still read (its columns held in a batch), each
+    handed out again once no array of its last lease is alive. A buffer
+    is allocated only when none that is free is large enough, a quarter
+    above what is asked; free buffers too small are let go then."""
+
+    def __init__(self, pin=True):
+        self.pin = pin
+        self.allocated = 0  # buffers allocated so far
+        self.copies = 0  # copies made into them (copy_back)
+        self._slots = []  # [buffer, weakref to its lease or None]
+        self._lock = threading.Lock()
+
+    def take(self, nbytes):
+        """(buffer, lease): a uint8 tensor of nbytes or more and the
+        _Lease of its first nbytes."""
+        with self._lock:
+            free = [s for s in self._slots if s[1] is None or s[1]() is None]
+            fit = [s for s in free if s[0].numel() >= nbytes]
+            if fit:
+                slot = min(fit, key=lambda s: s[0].numel())
+            else:
+                self._slots = [s for s in self._slots
+                               if all(s is not f for f in free)]
+                size = max(int(nbytes) * 5 // 4, 1 << 16)
+                slot = [torch.empty(size, dtype=torch.uint8,
+                                    pin_memory=self.pin), None]
+                self._slots.append(slot)
+                self.allocated += 1
+            lease = _Lease(slot[0], nbytes)
+            slot[1] = weakref.ref(lease)
+            return slot[0], lease
+
+    def copy_back(self, arena, raw=None):
+        """(lease, kept): the parse's arena, then `raw` (the slot's bytes,
+        or None), copied into one buffer on the current stream, one copy
+        each; kept is raw's numpy array in it. The caller waits for the
+        stream before reading either."""
+        n = arena.numel()
+        host, lease = self.take(n + (0 if raw is None else raw.numel()))
+        host[:n].copy_(arena, non_blocking=True)
+        kept = None
+        if raw is not None:
+            host[n:n + raw.numel()].copy_(raw, non_blocking=True)
+            kept = np.frombuffer(lease, np.uint8, raw.numel(), n)
+        with self._lock:
+            self.copies += 1 + (raw is not None)
+        return lease, kept
+
+
+_PINNED = PinnedPool()
+
+
+def _views(owner, layout, names):
+    """numpy arrays of `names` over the buffer of owner (a _Lease, or a
+    host tensor's numpy array) by layout."""
+    out = {}
+    for name in names:
+        at, count, dtype = layout[name]
+        dt = np.dtype(str(dtype).split(".")[1])
+        out[name] = np.frombuffer(owner, dt, count, at) if count else \
+            np.empty(0, dt)
+    return out
+
+
 def parse_segment(data, start, end, n_ref, timing=False, base=0,
                   keep_bytes=False):
     """ParsedSegment of the complete records of `data` (uint8[]) in [start,
@@ -455,11 +572,13 @@ def parse_segment(data, start, end, n_ref, timing=False, base=0,
 
     A CUDA tensor goes through the kernels (the scan's speculate and
     stitch, then the parse and its emit), on the current stream of its
-    card; the columns are copied into pinned host tensors on that stream,
-    and with keep_bytes the bytes of data[base:end] too (`timing`: the
-    steps' milliseconds by CUDA events). A CPU tensor goes through the
-    plain version. Offsets are counted from `base`. A bad record raises
-    record_error's exception, before any column comes back."""
+    card; the arena of columns, with the bytes after end_off, comes back
+    in one copy into a reused pinned buffer (PinnedPool), and with
+    keep_bytes the bytes of data[base:end] instead of those after it, in a
+    second copy into the same buffer (`timing`: the steps' milliseconds by
+    CUDA events). A CPU tensor goes through the plain version. Offsets are
+    counted from `base`. A bad record raises record_error's exception,
+    before any column comes back."""
     global bam_parse_launches
     start, end = _check_input(data, start, end, "bam_parse")
     if data.device.type == "cpu":
@@ -477,65 +596,65 @@ def run_parse_steps(data, start, end, n_ref, launch, timing=False, base=0,
                     keep_bytes=False):
     """The parse's steps over `data`'s device, each through
     launch(step, ScanArgs): the chain (speculate, the stitch's check and
-    walk, with PARSE_MIN_BS), the record starts, the parse, the
-    exclusive scan of the block counts (torch.cumsum), the emit. Waits
-    for the card twice before the end: for the record count, then for the
-    block count and the error words together, which raise before the emit
-    when a record is bad. The regions' lists of starts go once the starts
-    are written, before the columns are made, and the offsets are
-    computed in place, so that the card holds as little as it can while
-    the engine waits for its turn (the emit walks the regions by their
-    count and base)."""
+    walk, with PARSE_MIN_BS), the parse (the records' starts, their
+    checks, each region's blocks and, in its last block, the regions'
+    offsets and the total), the emit. Waits for the card twice before the
+    end: for the record count, then for the block count and the error
+    words together, which raise before the emit when a record is bad.
+    The regions' lists of starts go once the parse has written the starts
+    as 16-bit offsets, before the arena is made: every column, the blocks
+    and the carry in one allocation, sized exactly, so that the card holds
+    as little as it can while the engine waits for its turn. On a card
+    the arena (and with keep_bytes the slot's bytes) comes back into a
+    buffer of the module's PinnedPool."""
     st = _Steps(data, start, end, n_ref, PARSE_MIN_BS, timing)
     args, buf, timed = st.args, st.buf, st.timed
     stitch_h = st.chain(launch, start)
     n = int(stitch_h[0])
-    args.n_records = n
-    rec_off = buf("rec_off", n, torch.int64)
-    with timed("starts"):
-        if n:
-            launch(STARTS, args)
-    st.release("list")
-    cols = {name: rec_off if name == "rec_start" else
-            buf(_ARG_OF.get(name, name), n, dtype)
-            for name, dtype in PARSE_COLUMNS}
-    nblk = buf("nblk", n, torch.int32)
-    perr = buf("perr", 2, torch.int64, fill=NO_RECORD)
-    with timed("parse"):
-        if n:
+    args.n_records, args.origin = n, base
+    buf("roff", n, torch.int16)  # uint16 in the kernels
+    buf("rblk", st.n_regions, torch.int64)
+    buf("rbase", st.n_regions, torch.int64)
+    words = buf("pwords", 4, torch.int64, fill=NO_RECORD)
+    n_blocks, bad, geometry = 0, NO_RECORD, NO_RECORD
+    if n:
+        with timed("parse_count"):
             launch(PARSE, args)
-    with timed("block_scan"):
-        blk_off = torch.cumsum(nblk, 0)
-        total = blk_off[-1:].clone()
-        blk_off.sub_(nblk)
-    st.keep["blk_off"] = blk_off
-    args.blk_off = blk_off.data_ptr() if n else 0
-    sizes = st.to_host(torch.cat([total, perr]) if n else perr)
-    st.wait()
-    n_blocks = int(sizes[0]) if n else 0
-    bad, geometry = (int(x) for x in sizes[-2:])
+        st.release("list")
+        sizes = st.to_host(words[:3])
+        st.wait()
+        n_blocks, bad, geometry = (int(x) for x in sizes)
     if stitch_h[3] == STOP_TOO_SHORT:
         # record n, under 32 bytes, where the chain stopped: corrupt
         # geometry
         bad, geometry = min(bad, n), min(geometry, n)
     if bad != NO_RECORD:
         raise record_error(bad, geometry != NO_RECORD)
-    blocks = {name: buf(_ARG_OF.get(name, name), n_blocks, torch.int32)
-              for name in BLOCK_COLUMNS}
+    end_off = int(stitch_h[1])
+    layout, size = arena_layout(n, n_blocks, 0 if keep_bytes
+                                else end - end_off)
+    arena = buf("arena", size, torch.uint8)
+    for name, (at, _, _) in layout.items():
+        if name != "tail":
+            setattr(args, _ARG_OF.get(name, name), arena.data_ptr() + at)
     with timed("parse_emit"):
         if n:
             launch(PARSE_EMIT, args)
+    at, tail, _ = layout["tail"]
+    if tail:
+        arena[at:at + tail].copy_(data[end_off:end])
+    raw = data[base:end] if keep_bytes else None
     with timed("d2h"):
-        if base:
-            for name in ("rec_start", "rec_end"):
-                cols[name].sub_(base)
-        outs = {name: st.to_host(t)
-                for name, t in {**cols, **blocks}.items()}
-        kept = st.to_host(data[base:end]) if keep_bytes else None
+        owner, kept = st.arena_back(arena, raw)
     st.wait()
-    return ParsedSegment({k: v.numpy() for k, v in outs.items()},
-                         int(stitch_h[1]) - base, stitch_h, st.timing(),
-                         None if kept is None else kept.numpy())
+    names = [name for name, _ in PARSE_COLUMNS] + list(BLOCK_COLUMNS)
+    cols = _views(owner, layout, names)
+    if kept is None:
+        tail = _views(owner, layout, ["tail"])["tail"]
+    else:
+        tail = kept[end_off - base:]
+    return ParsedSegment(cols, end_off - base, stitch_h, st.timing(), kept,
+                         tail)
 
 
 # ---- the plain version
@@ -1060,8 +1179,10 @@ def bam_parse_reference(data, start, end, n_ref, base=0, keep_bytes=False):
     for name in ("rec_start", "rec_end"):
         out[name] = out[name] - base
     out.update({k: v.numpy() for k, v in blocks.items()})
-    return ParsedSegment(out, int(stitch[1]) - base, stitch, None,
-                         d[base:end].numpy().copy() if keep_bytes else None)
+    end_off = int(stitch[1])
+    return ParsedSegment(out, end_off - base, stitch, None,
+                         d[base:end].numpy().copy() if keep_bytes else None,
+                         d[end_off:end].numpy().copy())
 
 
 def parse_bytes_read(data, start, end, n_ref):

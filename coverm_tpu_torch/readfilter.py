@@ -19,7 +19,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from .flags import FlagFilter
-from .io.bam import RecordBatch
+from .io.bam import RecordBatch, record_bytes
 
 f32 = np.float32
 MAPQ_UNAVAILABLE = 255
@@ -58,6 +58,16 @@ class FilterParams:
             (not filtering_single or not flag_filters.include_improper_pairs)
             and self.min_mapq != MAPQ_UNAVAILABLE)
         return filtering_single, filtering_pairs
+
+
+def reads_whole_records(params: FilterParams,
+                        flag_filters: FlagFilter) -> bool:
+    """Whether apply_read_filter reads its batches' records whole: every
+    filter but a single-read-only one takes the pair path (filter.rs:88),
+    which joins mates through _mtid, so its batches need their bytes
+    (io/bam.BamStreamReader keep_bytes)."""
+    filtering_single, filtering_pairs = params.filtering_modes(flag_filters)
+    return not (filtering_single and not filtering_pairs)
 
 
 def _mapq_ok(batch: RecordBatch, min_mapq: int) -> np.ndarray:
@@ -206,7 +216,7 @@ def filter_payload(source, payload, params: FilterParams,
 
 def _mtid(batch: RecordBatch) -> np.ndarray:
     """next_refID (mate tid) decoded from the raw records."""
-    arr = np.frombuffer(batch.data, dtype=np.uint8)
+    arr = record_bytes(batch)
     offs = batch.rec_start
     return (
         arr[offs + 24].astype(np.uint32)

@@ -14,20 +14,21 @@ Times, on one BAM, each stage as the best of --reps passes:
   bookkeep          - scan.scan_sample with the depth engine stubbed
   stream            - io/bam.BamStreamReader on the device: inflate and
                       parse, prefetched (on a CUDA device its card route)
-  classic host      - the classic reader's host route (the CPU's), its
+  classic host      - the classic reader's host route (the CPU's) as
+                      `--gff` runs it (no records' bytes kept), its
                       stages' seconds summed apart: native.bgzf_scan,
                       the inflate (bgzf_inflate_blocks, on the prefetch
                       thread), the record walk (ct_walk_complete), the
                       parse (parse_records_full less the walk), and the
                       joins (_cat, concat_batches)
-  classic card      - on a CUDA device the classic reader's card route:
-                      the worker's seconds staging segments, the seconds
-                      waiting for the card slot (the inflate), the inflate
-                      kernel's ms, the parse's ms by step (CUDA events:
-                      speculate, the stitch's check and walk, parse,
-                      block_scan, parse_emit, the d2h of the columns and
-                      the slot's bytes) and its wall seconds, and the
-                      joins (concat_batches)
+  classic card      - on a CUDA device the classic reader's card route
+                      as `--gff` runs it: the worker's seconds staging
+                      segments, the seconds waiting for the card slot
+                      (the inflate), the inflate kernel's ms, the parse's
+                      ms by step (CUDA events: speculate, the stitch's
+                      check and walk, parse_count, parse_emit, the d2h of
+                      the arena of columns and the carry) and its wall
+                      seconds, and the joins (concat_batches)
   fused             - ingest_scan over the FusedScanStream plan, one
                       native call a segment (stream open included)
   card inflate      - ops/bgzf_inflate.SegmentInflater over the plan's
@@ -317,7 +318,8 @@ def fused_pass(path):
 
 def classic_pass(path, seg_bytes, device):
     """The classic reader (io/bam.BamStreamReader) over `path` on
-    `device`, batches dropped: (records, seconds by stage), the host
+    `device` as `--gff` runs it, without the records' bytes, batches
+    dropped: (records, seconds by stage), the host
     route's stages timed where they run and summed (the inflate on the
     prefetch thread overlaps the rest), the card route's from the
     reader's own timings."""
@@ -347,7 +349,8 @@ def classic_pass(path, seg_bytes, device):
         setattr(obj, name, timed(key, fn))
     try:
         reader = IB.BamStreamReader(path, target_bytes=seg_bytes,
-                                    device=device, timing=True)
+                                    device=device, timing=True,
+                                    keep_bytes=False)
         _, gen = reader.read()
         records = sum(b.n_records for b in gen)
     finally:

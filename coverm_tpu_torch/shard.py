@@ -29,7 +29,7 @@ import os
 import numpy as np
 
 from .genome_exclusion import GenomeExclusion, NoExclusionGenomeFilter
-from .io.bam import BamHeader, BamReader, RecordBatch
+from .io.bam import BamHeader, BamReader, RecordBatch, record_bytes
 
 
 class ShardedBamSource:
@@ -130,7 +130,7 @@ def stream_merge_shards(bam_paths, genome_exclusion=None, device=None):
                 m = min(left, b.n_records)
                 for f in cols:
                     cols[f].append(getattr(b, f)[:m])
-                data = b.data
+                data = record_bytes(b)
                 for i in range(m):
                     recs.append(bytes(
                         data[int(b.rec_start[i]):int(b.rec_end[i])]))
@@ -315,8 +315,8 @@ def merge_shards(headers, raw_batches, genome_exclusion=None):
 
     # raw record bytes: concatenate shard datas, rebase offsets
     data_offsets = np.concatenate(
-        ([0], np.cumsum([len(p.data) for p in prim])))[:-1]
-    data = b"".join(bytes(p.data) for p in prim)
+        ([0], np.cumsum([record_bytes(p).size for p in prim])))[:-1]
+    data = b"".join(record_bytes(p).tobytes() for p in prim)
     rs = np.stack([p.rec_start for p in prim])
     re_ = np.stack([p.rec_end for p in prim])
     rec_start = rs[win_rec, np.arange(n)] + data_offsets[win_rec]

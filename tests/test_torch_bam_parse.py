@@ -26,12 +26,18 @@ P operations and codes above 8, a truncated last record, block_size
 under 33 (32 with no name or CIGAR, which the host parses, and shorter
 ones, which it refuses), a negative l_seq, a corrupt l_read_name and
 malformed or truncated aux tags, errors on either side of a region
-boundary.
+boundary, reads of 1,500 to 6,000 bases whose records run past the
+parse's staged window, and the record scan's streams (long reads,
+forged headers, regions the stitch walks, whose starts the parse walks
+too). Without the bytes (keep_bytes=False) the columns, the end and the
+carry are the same and no bytes come back; the arena's layout and the
+pinned pool's reuse are held too.
 
 On the card (`python -m pytest --noconftest -m cuda
 tests/test_torch_bam_parse.py`) the kernels must equal the plain version
-and the host parse on the same streams, one launch counted a parse. This
-file imports the JAX package only inside its CPU tests.
+and the host parse on the same streams, one launch counted a parse, and
+each parse copies its arena back in one copy (one more for the bytes).
+This file imports the JAX package only inside its CPU tests.
 """
 
 import importlib
@@ -45,6 +51,7 @@ from coverm_tpu_torch.io import bam as B
 from coverm_tpu_torch.io import native
 from coverm_tpu_torch.ops import bam_scan as S
 
+from test_torch_bam_scan import STREAMS as SCAN_STREAMS
 from test_torch_bam_scan import host_kernels  # noqa: F401
 
 N_REF = 6
@@ -131,6 +138,20 @@ def long_cigar():
     return [rec(2, 10, 0, cig, 30000, b"cigar", tags_of(1))]
 
 
+def long_reads(n=300, seed=31):
+    """n sorted records of 1,500 to 6,000 bases (2.3 to 9 KiB), so that
+    the last records of many regions run past the parse's window of the
+    region (S.STAGE bytes)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for j in range(n):
+        ln = int(rng.choice([1500, 3000, 6000]))
+        cig = ((0, ln // 2), (1, 3), (0, ln - ln // 2 - 3))
+        out.append(rec(j * N_REF // n, j * 11, 0, cig, ln, b"long%d" % j,
+                       tags_of(j)))
+    return out
+
+
 STREAMS = {
     "mixed": lambda: _join(mixed(4000, 1)),  # over four 64 KiB regions
     "long_cigar": lambda: _join(mixed(300, 2) + long_cigar()
@@ -165,7 +186,21 @@ STREAMS = {
     "bad_then_corrupt": lambda: _join(
         mixed(200, 22) + [rec(1, 1, l_seq_field=-1)] + mixed(100, 23)
         + [rec(4, 1, l_read_name=250)] + mixed(20, 24, 4)),
+    "long_reads": lambda: _join(long_reads()),
 }
+# the record scan's streams (tests/test_torch_bam_scan.py): records of up
+# to 1,200 and of 90,000 and 150,000 bases, headers forged into quality
+# bytes and a B array (a stream that the host's parse refuses at its
+# first record, and so must the kernels), and regions the stitch has to
+# walk (from region 1, from several)
+for _name in ("sorted", "forged", "long", "walk_from_region_1",
+              "walk_from_several_regions"):
+    STREAMS["scan_" + _name] = SCAN_STREAMS[_name]
+# the streams the host parses whole
+PARSED = ("mixed", "long_cigar", "names", "nm_twice", "truncated_last",
+          "zero_block_size", "block_size_32_parsed", "long_reads",
+          "scan_sorted", "scan_long", "scan_walk_from_region_1",
+          "scan_walk_from_several_regions")
 
 
 def region_1_first():
@@ -258,9 +293,7 @@ def test_streams_equal_the_host_parse(host_kernels, jax_native_loaded,
                            host_kernels).items():
         assert_same(out, want)
     ok = not isinstance(want[0], str)
-    assert ok == (name in ("mixed", "long_cigar", "names", "nm_twice",
-                           "truncated_last", "zero_block_size",
-                           "block_size_32_parsed")), want
+    assert ok == (name in PARSED), want
     if name == "mixed":
         assert data.size > 3 * S.REGION and want[0]["block_read"].size
     if name == "block_size_32_parsed":
@@ -373,6 +406,110 @@ def test_offsets_count_from_base_and_bytes_come_back():
     np.testing.assert_array_equal(ps.data, data)
 
 
+def window_crossings(cols):
+    """How many records run past their region's parse window."""
+    start = cols["rec_start"]
+    return int((cols["rec_end"] > start // S.REGION * S.REGION
+                + S.STAGE).sum())
+
+
+def test_records_cross_the_window_and_regions_are_walked(host_kernels):
+    """The streams reach the parse's two slow paths: records read whole
+    from device memory past the window (long_reads, the scan's long
+    stream), and regions whose starts the parse walks from their entry,
+    because the stitch walked them (the forged streams)."""
+    for name, least in (("long_reads", 10), ("scan_long", 1)):
+        data = STREAMS[name]()
+        ps = S.run_parse_steps(torch.from_numpy(data), 0, data.size, N_REF,
+                               host_kernels)
+        assert window_crossings(ps.columns) >= least, name
+    for name in ("scan_walk_from_region_1",
+                 "scan_walk_from_several_regions"):
+        data = STREAMS[name]()
+        ps = S.run_parse_steps(torch.from_numpy(data), 0, data.size, N_REF,
+                               host_kernels)
+        assert ps.stitch[4] > 0, name  # regions walked again
+    # a region of more than 256 records (the emit's tiles) and of more
+    # than kBlkStage blocks (stored unstaged), and one of fewer (staged)
+    cols = outcome_host(STREAMS["mixed"](), 0, STREAMS["mixed"]().size)[0]
+    per_region = np.bincount(cols["rec_start"] // S.REGION)
+    blocks = np.bincount(cols["rec_start"][cols["block_read"]] // S.REGION)
+    assert per_region.max() > 256 and blocks.max() > 512
+    assert (blocks < 512).any()
+
+
+@pytest.mark.parametrize("name", ["mixed", "long_reads", "truncated_last",
+                                  "zero_block_size", "scan_walk_from_region_1",
+                                  "block_size_32_parsed"])
+def test_without_the_bytes_the_columns_and_carry_are_the_same(host_kernels,
+                                                              name):
+    """keep_bytes=False gives the same columns and end_off, data None and
+    the same carry (tail: the bytes after end_off), from the kernels'
+    host build, the plain version and parse_segment; keep_bytes=True the
+    bytes from base."""
+    data = STREAMS[name]()
+    pad = np.arange(1000, dtype=np.uint8)
+    t = torch.from_numpy(np.concatenate([pad, data]))
+    ways = {
+        "kernels": lambda keep: S.run_parse_steps(
+            t, 1000, t.numel(), N_REF, host_kernels, base=1000,
+            keep_bytes=keep),
+        "plain": lambda keep: S.bam_parse_reference(
+            t, 1000, t.numel(), N_REF, 1000, keep),
+        "parse_segment": lambda keep: S.parse_segment(
+            t, 1000, t.numel(), N_REF, base=1000, keep_bytes=keep),
+    }
+    want = outcome_host(data, 0, data.size)
+    for way, fn in ways.items():
+        kept, bare = fn(True), fn(False)
+        assert bare.data is None, way
+        for ps in (kept, bare):
+            assert_same((ps.columns, ps.end_off), want)
+            np.testing.assert_array_equal(ps.tail, data[want[1]:],
+                                          err_msg=way)
+        np.testing.assert_array_equal(kept.data, data, err_msg=way)
+
+
+def test_arena_layout_and_the_pinned_pool():
+    """The arena's columns lie apart, each from a multiple of
+    ARENA_ALIGN, in PARSE_COLUMNS, BLOCK_COLUMNS and tail order; the pool
+    hands a buffer out again only once no array of its last lease is
+    alive, and counts one copy for the arena and one for the bytes."""
+    import gc
+    layout, size = S.arena_layout(1001, 2003, 77)
+    names = [n for n, _ in S.PARSE_COLUMNS] + list(S.BLOCK_COLUMNS)
+    assert list(layout) == names + ["tail"]
+    end = 0
+    for name, (at, count, dtype) in layout.items():
+        assert at % S.ARENA_ALIGN == 0 and at >= end, name
+        end = at + count * dtype.itemsize
+        assert count == {"tail": 77, **dict.fromkeys(
+            S.BLOCK_COLUMNS, 2003)}.get(name, 1001)
+    assert end <= size < end + S.ARENA_ALIGN
+    pool = S.PinnedPool(pin=False)
+    arena = torch.arange(4096, dtype=torch.int64).view(torch.uint8)
+    lease, kept = pool.copy_back(arena)
+    col = np.frombuffer(lease, np.int64, 512, 0)
+    np.testing.assert_array_equal(col, np.arange(512))
+    assert kept is None and pool.copies == 1 and pool.allocated == 1
+    del lease
+    gc.collect()
+    raw = torch.arange(100, dtype=torch.uint8)
+    lease2, kept2 = pool.copy_back(arena, raw)  # col alive: a new buffer
+    assert pool.allocated == 2 and pool.copies == 3
+    np.testing.assert_array_equal(kept2, np.arange(100))
+    np.testing.assert_array_equal(col, np.arange(512))
+    del col, lease2, kept2
+    gc.collect()
+    pool.copy_back(arena)  # both free again: no new buffer
+    assert pool.allocated == 2 and pool.copies == 4
+    gc.collect()
+    big = torch.zeros(1 << 20, dtype=torch.uint8)
+    lease3, _ = pool.copy_back(big)  # too large for both: they go
+    assert pool.allocated == 3 and len(pool._slots) == 1
+    assert np.frombuffer(lease3, np.uint8).size == 1 << 20
+
+
 def test_parse_bytes_read_leaves_out_sequences():
     """The bound's byte count (chip_smoke.py's bam_parse bound_ms): the
     sectors of the fixed fields, names, CIGARs and aux tags up to NM and
@@ -428,3 +565,39 @@ def test_cuda_parse_equals_plain_and_host(tmp_path):
         assert_same(plain, want)
         if not isinstance(want[0], str):
             assert S.bam_parse_launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keep", [False, True])
+def test_cuda_one_arena_copy_a_segment(keep):
+    """On the card each parse copies back its arena in one copy (and with
+    keep_bytes the slot's bytes in one more) into the module's pinned
+    pool, whose buffers come back into use; the columns and the carry are
+    the plain version's, the bytes data's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    import gc
+    dev = torch.device("cuda")
+    for name in ("mixed", "long_reads", "scan_walk_from_several_regions",
+                 "truncated_last"):
+        data = STREAMS[name]()
+        on_card = torch.from_numpy(data).to(dev)
+        plain = S.bam_parse_reference(torch.from_numpy(data), 0, data.size,
+                                      N_REF, keep_bytes=keep)
+        copies = S._PINNED.copies
+        got = S.parse_segment(on_card, 0, data.size, N_REF, keep_bytes=keep)
+        assert S._PINNED.copies == copies + 1 + keep, name
+        assert_same((got.columns, got.end_off),
+                    (plain.columns, plain.end_off))
+        np.testing.assert_array_equal(got.tail, plain.tail)
+        if keep:
+            np.testing.assert_array_equal(got.data, data)
+        else:
+            assert got.data is None
+        del got
+        gc.collect()
+    allocated = S._PINNED.allocated
+    for _ in range(3):  # the same segment again: a buffer reused
+        S.parse_segment(on_card, 0, data.size, N_REF, keep_bytes=keep)
+        gc.collect()
+    assert S._PINNED.allocated == allocated

@@ -20,8 +20,13 @@ for batch and field for field (the bytes behind them included), at
 several segment sizes, with a header that spans segments and records
 that straddle them, parse every record once, hold the JAX reader's
 records and raise the host route's error on a corrupt BGZF block; and
-`--gff`, a pair filter, COVERM_TPU_FUSED=0 with `-m metabat` and
-`filter` must print (and write) the JAX package's bytes through it.
+`--gff`, a pair filter, COVERM_TPU_FUSED=0 with `-m metabat` or a
+single-read filter, `filter` and `--sharded` must print (and write) the
+JAX package's bytes through it, only the pair filter, `filter` and
+`--sharded` keeping the records' bytes. Without the bytes
+(keep_bytes=False) both routes yield the same columns and carries,
+concat_batches joins the columns alone, and the readers of whole
+records raise.
 """
 
 import contextlib
@@ -303,23 +308,84 @@ def test_card_route_raises_the_host_routes_error_on_a_corrupt_block(
     assert parsed  # the segments before the bad block were parsed
 
 
+def parsed_segments(path, seg, keep_bytes):
+    """[(batch, tail, last)] of BamStreamReader.parsed over `path`."""
+    reader = B.BamStreamReader(path, target_bytes=seg, device="cpu",
+                               keep_bytes=keep_bytes)
+    return list(reader.parsed(reader._header_at))
+
+
+@pytest.mark.parametrize("card", [False, True])
+@pytest.mark.parametrize("seg", (2048, 5000, 1 << 20))
+def test_without_bytes_the_same_columns_and_carries(bam, seg, card,
+                                                    monkeypatch):
+    """keep_bytes=False, on the host route and on the card route: each
+    segment's batch holds the same columns and end as with the bytes,
+    data None, the same carry after it; the reader's contig-cut batches
+    alike; concat_batches of batches without bytes joins their columns
+    as it joins those of batches with them, copying no byte; and the
+    readers of whole records (readfilter._mtid, RecordBatch.qnames, the
+    pair filter) raise on them."""
+    path, n_records = bam
+    kept = parsed_segments(path, seg, True)
+    kept_batches = list(B.BamStreamReader(path, target_bytes=seg,
+                                          device="cpu").read()[1])
+    if card:
+        use_card_standin(monkeypatch)
+    bare = parsed_segments(path, seg, False)
+    assert len(bare) == len(kept)
+    for (a, ta, la), (b, tb, lb) in zip(bare, kept):
+        assert a.data is None and b.data is not None and la == lb
+        for f in FIELDS:
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f),
+                                          err_msg=f)
+        np.testing.assert_array_equal(B._as_u8(ta), B._as_u8(tb))
+    got = list(B.BamStreamReader(path, target_bytes=seg, device="cpu",
+                                 keep_bytes=False).read()[1])
+    assert len(got) == len(kept_batches)
+    assert sum(b.n_records for b in got) == n_records
+    for a, b in zip(got, kept_batches):
+        assert a.data is None
+        for f in FIELDS:
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f),
+                                          err_msg=f)
+    pieces = [b for b, _, _ in bare if b.n_records][:4]
+    with_bytes = [b for b, _, _ in kept if b.n_records][:4]
+    joined, want = B.concat_batches(pieces), B.concat_batches(with_bytes)
+    assert joined.data is None and want.data is not None
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(joined, f), getattr(want, f),
+                                      err_msg=f)
+    for read_whole in (_mtid, lambda b: b.qnames(),
+                       lambda b: list(filter_payload(
+                           type("Src", (), {})(), iter([b]),
+                           FilterParams(min_percent_identity_pair=0.95),
+                           FlagFilter()))):
+        with pytest.raises(ValueError, match="keep_bytes"):
+            read_whole(joined)
+
+
 GFF_GENES = [(t, s, s + ln) for t in (0, 1, 2, 4)
              for s, ln in ((100, 900), (5000, 2500), (20000, 12000),
                            (40000, 7000))]
 
 
 @pytest.mark.parametrize("case", ["gff", "pair_filter", "classic_metabat",
-                                  "filter"])
+                                  "filter", "single_filter", "sharded"])
 def test_cli_through_the_card_route_prints_the_jax_bytes(
         bam, tmp_path, monkeypatch, jax_native, case):
-    """The four routes of the classic reader, the port through the card
+    """The routes of the classic reader, the port through the card
     route on the CPU in 8 KiB segments, the JAX package's CLI on the
     same BAM in the same segments: the same TSV, or for `filter` the same
-    output BAM and count line."""
+    output BAM and count line. `--gff`, COVERM_TPU_FUSED=0 with `-m
+    metabat` and a single-read filter read their batches without the
+    bytes; a pair filter, `filter` and `--sharded` (two name-sorted
+    shard BAMs, tests/test_torch_mapping.write_shards) with them."""
     from coverm_tpu import cli as jcli
     from coverm_tpu import modes as jmodes
     from coverm_tpu_torch import cli
     from coverm_tpu_torch import modes
+    from coverm_tpu_torch.io import native
     path, n_records = bam
     gff = tmp_path / "genes.gff"
     gff.write_text("".join(f"c{t}\tt\tgene\t{s + 1}\t{e}\t.\t+\t.\t"
@@ -333,14 +399,35 @@ def test_cli_through_the_card_route_prints_the_jax_bytes(
         "classic_metabat": ["contig", "-b", path, "-m", "metabat"],
         "filter": ["filter", "-b", path, "--min-read-percent-identity-pair",
                    "96"],
+        "single_filter": ["contig", "-b", path, *methods,
+                          "--min-read-percent-identity", "96"],
+        "sharded": ["contig", "--sharded", "-m", "mean", "count", "-b"],
     }[case]
+    if case == "sharded":
+        from test_torch_mapping import write_shards
+        shards = {}
+        write_shards(shards, tmp_path, np.random.default_rng(3))
+        argv += [shards["s1"], shards["s2"]]
+        n_records = 1600  # 400 pairs a shard
     monkeypatch.setenv("COVERM_TPU_SEGMENT_BYTES", str(SEGS[1]))
-    if case == "classic_metabat":
+    if case in ("classic_metabat", "single_filter"):
         monkeypatch.setenv("COVERM_TPU_FUSED", "0")
     monkeypatch.setattr(jmodes, "STREAM_THRESHOLD_BYTES", 1)
     monkeypatch.setattr(modes, "STREAM_THRESHOLD_BYTES", 1)
     outs = [str(tmp_path / "jax.out"), str(tmp_path / "port.out")]
+    host_parse = native.parse_records_full
     parsed = use_card_standin(monkeypatch)
+    if case == "sharded":
+        # the merge's external sorter parses its spilled buckets on the
+        # host: only the shards' reading must take the card route
+        monkeypatch.setattr(native, "parse_records_full", host_parse)
+    kept = []  # each of the port's readers: did it keep the bytes?
+    init = B.BamStreamReader.__init__
+
+    def noting(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        kept.append(self.keep_bytes)
+    monkeypatch.setattr(B.BamStreamReader, "__init__", noting)
     said = []
     for run, out in ((lambda a: jcli.main(a), outs[0]),
                      (lambda a: cli.main(a, device="cpu"), outs[1])):
@@ -357,3 +444,5 @@ def test_cli_through_the_card_route_prints_the_jax_bytes(
         want.count(b"\n") >= 6
     assert said[0] == said[1]
     assert sum(parsed) == n_records
+    whole = case in ("pair_filter", "filter", "sharded")
+    assert kept and set(kept) == {whole}, kept
