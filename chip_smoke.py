@@ -135,15 +135,20 @@ Phases, in order; any failure exits non-zero:
      and unmapped segments apart;
  23. the BAM record scan (ops/bam_scan.py) bit for bit against the
      host's ct_stats_scan (native.stats_scan) and its plain version on
-     the CPU tests' adversarial streams (tests/test_torch_bam_scan.py),
-     unfiltered and under metabat's filter, then on phase 4's BAM segment
-     by segment as the main path hands them over (the inflate's card
-     slot, the carry before it; also against the plain version, timed)
-     and on phase 17's 32 MiB metabat segments under its filter: blocks,
-     per-contig counts, runs, scalars and carry; its ms (CUDA events
-     around each call, and by step: the stitch's parallel check and its
-     walk apart, the fold apart from the emit) beside its bound and the
-     plain version's, and the regions the stitch walked in sequence.
+     the CPU tests' adversarial streams (tests/test_torch_bam_scan.py,
+     and the speculate's join streams of
+     tests/test_torch_bam_speculate.py), unfiltered and under metabat's
+     filter, then on phase 4's BAM segment by segment as the main path
+     hands them over (the inflate's card slot, the carry before it; also
+     against the plain version, timed) and on phase 17's 32 MiB metabat
+     segments under its filter: blocks, per-contig counts, runs, scalars
+     and carry; the speculate alone (first, exit, count and starts of
+     every region) against its plain version on the streams and phase
+     4's segments, with the scan's min_bs and the parse's; its ms (CUDA
+     events around each call, and by step: speculate, the stitch's
+     parallel check and its walk, analyse, fold, emit) beside its bound
+     (also by step) and the plain version's, and the regions the stitch
+     walked in sequence.
  24. the record parse (ops/bam_scan.parse_segment, the classic reader's
      columns) column for column against the host's parse_records_full
      and its plain version on the CPU tests' streams
@@ -157,8 +162,9 @@ Phases, in order; any failure exits non-zero:
      pair filters): its ms (CUDA events around each call, and by step,
      the copy back apart from the kernels), the launches a segment, one
      arena copy a parse (and one of the bytes), the card's peak around
-     each parse (max_memory_allocated), beside its bound, the plain
-     version's and the copy back over the link.
+     each parse (max_memory_allocated), beside its bound (also by step),
+     the plain version's and the copy back over the link; the speculate
+     with the parse's min_bs against its plain version on each segment.
 
 Phases 4 to 11 and 17 each run their command once to warm up (recording the
 kernel's inputs and the engine's batches), then once with the kernels'
@@ -1578,6 +1584,32 @@ def scan_same(label, got, want):
     return 0
 
 
+def speculate_same(label, on_card, host, start, end, n_ref, min_bs):
+    """Raise unless the speculate on the card (ops/bam_scan.speculate)
+    gives its plain version's first, exit_, cnt and starts on the same
+    bytes; returns their largest absolute difference (0) and the plain
+    version's ms."""
+    import torch
+    from coverm_tpu_torch.ops import bam_scan as S
+    got = S.speculate(on_card, start, end, n_ref, min_bs)
+    t0 = time.perf_counter()
+    want = S.speculate_reference(torch.from_numpy(host), start, end, n_ref,
+                                 min_bs)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = 0
+    pairs = list(zip(got[:3], want[:3])) + list(zip(got[3], want[3]))
+    if len(got[3]) != len(want[3]) or any(g.shape != w.shape
+                                          for g, w in pairs):
+        raise SystemExit(f"speculate: {label} (min_bs {min_bs}): the "
+                         "regions' starts differ in number")
+    for g, w in pairs:
+        err = max(err, int(np.abs(g.astype(np.int64) - w).max(initial=0)))
+    if err:
+        raise SystemExit(f"speculate: {label} (min_bs {min_bs}) differs "
+                         f"from its plain version by {err}")
+    return float(err), plain_ms
+
+
 def scan_err(a, b):
     """The largest absolute difference of two record scans' blocks and
     runs (the integer words, and the float64 sums as values); 2**31 when
@@ -1605,6 +1637,7 @@ def phase_scan(bam, metabat_bam, dev, card):
     sys.path.insert(0, os.path.join(os.path.dirname(
         os.path.abspath(__file__)), "tests"))
     import test_torch_bam_scan as T
+    import test_torch_bam_speculate as J
     from coverm_tpu_torch.flags import FlagFilter
     from coverm_tpu_torch.io.fastscan import (_CARD_HEADROOM,
                                               FusedScanStream, plan_segments)
@@ -1615,13 +1648,19 @@ def phase_scan(bam, metabat_bam, dev, card):
     # the adversarial streams, unfiltered and under metabat's filter
     rf_metabat = FilterParams(min_percent_identity_single=0.97001)
     n_streams = 0
-    err = 0.0  # the kernels against the plain version
-    for name in sorted(T.STREAMS):
-        data = T.STREAMS[name]()
+    err = spec_err = 0.0  # the kernels against the plain version
+    streams = {**T.STREAMS,
+               **{"join_" + k: v for k, v in J.JOIN_STREAMS.items()}}
+    for name in sorted(streams):
+        data = streams[name]()
+        on_card = torch.from_numpy(data).to(dev)
+        for min_bs in (S.SCAN_MIN_BS, S.PARSE_MIN_BS):
+            spec_err = max(spec_err, speculate_same(
+                name, on_card, data, 0, data.size, T.N_REF, min_bs)[0])
         for rf in (None, rf_metabat):
             want = T.outcome_host(data, 0, data.size, T.N_REF, rf)
-            sc = S.scan_segment(torch.from_numpy(data).to(dev), 0, data.size,
-                                T.N_REF, T.SKIP, T.REQ, rf)
+            sc = S.scan_segment(on_card, 0, data.size, T.N_REF, T.SKIP,
+                                T.REQ, rf)
             plain = S.bam_scan_reference(torch.from_numpy(data), 0,
                                          data.size, T.N_REF, T.SKIP, T.REQ,
                                          rf)
@@ -1642,13 +1681,14 @@ def phase_scan(bam, metabat_bam, dev, card):
                                  f"region {sc.stitch[6]}, not {walk_from}")
             n_streams += 1
     log(f"[scan] kernels equal ct_stats_scan and the plain version on "
-        f"{n_streams} adversarial streams and filters")
+        f"{n_streams} adversarial streams and filters; the speculate its "
+        f"plain version on {len(streams)} streams at min_bs 33 and 32")
 
     def segments_of(path, seg_bytes, rf, plain):
         """Each segment of `path` through the kernels (timed), the host
         scan and (plain) the plain version, as card_blocks hands them
         over."""
-        nonlocal err
+        nonlocal err, spec_err
         stream = FusedScanStream(path, seg_bytes)
         header = stream.open()
         mm, off, csz, usz, carry, j = stream._plan
@@ -1661,7 +1701,9 @@ def phase_scan(bam, metabat_bam, dev, card):
                                 _CARD_HEADROOM, dev)
         rec = {"ms": 0.0, "step_ms": {}, "plain_ms": 0.0, "bytes": 0,
                "read": 0, "written": 0, "blocks": 0, "records": 0,
-               "walked": 0, "in_sequence": 0, "segments": 0}
+               "walked": 0, "in_sequence": 0, "segments": 0,
+               "spec_bytes": 0, "regions": 0, "fold_written": 0,
+               "plain_step_ms": {"speculate": 0.0, "records": 0.0}}
         carry = torch.from_numpy(np.ascontiguousarray(carry)).to(dev) \
             if carry is not None and len(carry) else None
         try:
@@ -1696,11 +1738,32 @@ def phase_scan(bam, metabat_bam, dev, card):
                     rec["read"] += S.bytes_read(torch.from_numpy(host), lo,
                                                 hi, header.n_ref, skip, req,
                                                 rf)
+                    for min_bs in (S.SCAN_MIN_BS, S.PARSE_MIN_BS):
+                        e, ms = speculate_same(f"{path} segment {k}", slot,
+                                               host, lo, hi, header.n_ref,
+                                               min_bs)
+                        spec_err = max(spec_err, e)
+                        if min_bs == S.SCAN_MIN_BS:
+                            rec["plain_step_ms"]["speculate"] += ms
+                    ht = torch.from_numpy(host)
+                    rec["spec_bytes"] += S.chain_bytes(ht, lo, hi,
+                                                       header.n_ref)
+                    # the records step's plain version alone (analyse and
+                    # emit over the plain chain's starts)
+                    off = torch.from_numpy(S._chain(ht, lo, hi,
+                                                    header.n_ref)[0])
+                    t0 = time.perf_counter()
+                    pa = S._analyse(ht, off, header.n_ref, skip, req, rf)
+                    S._emit(ht, off, pa[1], pa[6])
+                    rec["plain_step_ms"]["records"] += \
+                        (time.perf_counter() - t0) * 1e3
                 rec["bytes"] += hi - lo
                 rec["written"] += 12 * sc.btid.size + 8 * sc.runs.size \
                     + 8 * sc.chunks.size
                 rec["blocks"] += sc.btid.size
                 rec["records"] += sc.n_records
+                rec["regions"] += -(-(hi - lo) // S.REGION)
+                rec["fold_written"] += 8 * (sc.runs.size + sc.chunks.size)
                 rec["walked"] += sc.regions_walked
                 rec["in_sequence"] += sc.regions_in_sequence
                 rec["segments"] += 1
@@ -1720,6 +1783,17 @@ def phase_scan(bam, metabat_bam, dev, card):
     # chunk words written once
     bound_ms = (main["read"] + main["written"]) / H100_BYTES_PER_S * 1e3
     all_ms = (main["bytes"] + main["written"]) / H100_BYTES_PER_S * 1e3
+    # by step: the speculate the sectors that hold each record's
+    # block_size and its starts and region words written; the stitch's
+    # check and walk each region's three words read and four written; the
+    # records step (analyse and emit) the sectors the scan has to read and
+    # 12 bytes a block written; the fold 33 bytes a record read (flags,
+    # tid, nblk, nm, ind, idv) and the runs and chunk words written
+    step_bound_ms = {k: v / H100_BYTES_PER_S * 1e3 for k, v in {
+        "speculate": main["spec_bytes"],
+        "stitch": 44 * main["regions"],
+        "records": main["read"] + 12 * main["blocks"],
+        "fold": 33 * main["records"] + main["fold_written"]}.items()}
     log(f"[scan] phase 4's BAM: {main['segments']} segments, "
         f"{main['records']} records, {main['blocks']} blocks, equal to "
         f"ct_stats_scan and the plain version (max_abs_err {err}); "
@@ -1728,9 +1802,12 @@ def phase_scan(bam, metabat_bam, dev, card):
         f"regions walked in sequence after the stitch's check, "
         f"{main['walked']} of them walked again; plain version "
         f"{main['plain_ms']:.1f} "
-        f"ms; bound {bound_ms:.4f} ms (bytes: {main['read']} read of "
+        f"ms (by step {json.dumps(main['plain_step_ms'])}); bound "
+        f"{bound_ms:.4f} ms (bytes: {main['read']} read of "
         f"{main['bytes']} inflated, {main['written']} written; every "
-        f"inflated byte read would be {all_ms:.4f} ms)")
+        f"inflated byte read would be {all_ms:.4f} ms; by step "
+        f"{json.dumps(step_bound_ms)}); the speculate equal to its plain "
+        f"version on every segment (max_abs_err {spec_err})")
     log(f"[scan] phase 17's metabat BAM: {mb['segments']} segments of "
         f"{METABAT_SEGMENT_BYTES} bytes under the filter, equal to "
         f"ct_stats_scan; kernels {mb['ms']:.3f} ms (steps "
@@ -1738,7 +1815,10 @@ def phase_scan(bam, metabat_bam, dev, card):
         f"in sequence; {card}")
     return {"ms": main["ms"], "step_ms": main["step_ms"],
             "plain_ms": main["plain_ms"], "bound_ms": bound_ms,
-            "max_abs_err": err, "bytes": main["bytes"],
+            "step_bound_ms": step_bound_ms,
+            "plain_step_ms": main["plain_step_ms"],
+            "max_abs_err": max(err, spec_err),
+            "speculate_max_abs_err": spec_err, "bytes": main["bytes"],
             "bytes_read": main["read"], "bytes_written": main["written"],
             "blocks": main["blocks"], "records": main["records"],
             "regions_walked": main["walked"],
@@ -1898,7 +1978,9 @@ def phase_parse(bam, work, dev, card, d2h_gb_per_s):
     routes = {"bare": False, "kept": True}
     rec = {"plain_ms": 0.0, "bytes": 0, "read": 0, "written": 0,
            "records": 0, "blocks": 0, "segments": 0, "launches": 0,
-           "copies": 0}
+           "copies": 0, "spec_bytes": 0, "regions": 0,
+           "spec_plain_ms": 0.0}
+    spec_err = 0.0
     rec.update({r: {"ms": 0.0, "step_ms": {}, "back": 0, "peak": 0,
                     "above": 0} for r in routes})
     carry, n_ref = None, None
@@ -1967,6 +2049,13 @@ def phase_parse(bam, work, dev, card, d2h_gb_per_s):
             err = max(err, parse_err(ps, p))
             rec["read"] += S.parse_bytes_read(torch.from_numpy(host), start,
                                               hi, n_ref)
+            e, ms = speculate_same(f"{bam} segment {k}", slot, host, start,
+                                   hi, n_ref, S.PARSE_MIN_BS)
+            spec_err = max(spec_err, e)
+            rec["spec_plain_ms"] += ms
+            rec["spec_bytes"] += S.chain_bytes(torch.from_numpy(host), start,
+                                               hi, n_ref, S.PARSE_MIN_BS)
+            rec["regions"] += -(-(hi - start) // S.REGION)
             rec["written"] += S.PARSE_RECORD_BYTES * ps.n_records \
                 + S.PARSE_BLOCK_BYTES * n_blocks
             rec["bytes"] += hi - start
@@ -1989,8 +2078,16 @@ def phase_parse(bam, work, dev, card, d2h_gb_per_s):
     # and the columns and blocks written once; then each route's copy
     # back over the link at phase 22's measured d2h rate
     bound_ms = (rec["read"] + rec["written"]) / H100_BYTES_PER_S * 1e3
+    # by step, as phase 23 counts the speculate and the stitch; the parse's
+    # two launches the bound above
+    step_bound_ms = {k: v / H100_BYTES_PER_S * 1e3 for k, v in {
+        "speculate": rec["spec_bytes"], "stitch": 44 * rec["regions"],
+        "parse": rec["read"] + rec["written"]}.items()}
     out = {"plain_ms": rec["plain_ms"], "bound_ms": bound_ms,
-           "max_abs_err": err, "bytes": rec["bytes"],
+           "step_bound_ms": step_bound_ms,
+           "plain_step_ms": {"speculate": rec["spec_plain_ms"]},
+           "max_abs_err": max(err, spec_err),
+           "speculate_max_abs_err": spec_err, "bytes": rec["bytes"],
            "bytes_read": rec["read"], "bytes_written": rec["written"],
            "records": rec["records"], "blocks": rec["blocks"],
            "segments": rec["segments"], "streams": n_streams,
@@ -2012,7 +2109,10 @@ def phase_parse(bam, work, dev, card, d2h_gb_per_s):
             f"{r['peak']} bytes, {r['above']} above what was allocated "
             f"before the parse; plain version {rec['plain_ms']:.1f} ms; "
             f"bound {bound_ms:.4f} ms (bytes: {rec['read']} read of "
-            f"{rec['bytes']} inflated, {rec['written']} written); {card}")
+            f"{rec['bytes']} inflated, {rec['written']} written; by step "
+            f"{json.dumps(step_bound_ms)}); the speculate (min_bs 32) equal "
+            f"to its plain version on every segment (max_abs_err "
+            f"{spec_err}); {card}")
         out[route] = {"ms": r["ms"], "kernel_ms": kernels,
                       "step_ms": steps,
                       "launches_a_segment": len(steps) - 1,
@@ -2445,6 +2545,9 @@ def main():
         "step_ms": scan["step_ms"],
         "plain_ms": scan["plain_ms"],
         "bound_ms": scan["bound_ms"],
+        "step_bound_ms": scan["step_bound_ms"],
+        "plain_step_ms": scan["plain_step_ms"],
+        "speculate_max_abs_err": scan["speculate_max_abs_err"],
         "bound_by": "bytes",
         "library_ms": None,
         "library_note": "none: no PyTorch call scans BAM records",
@@ -2475,6 +2578,9 @@ def main():
         "step_ms": parse["bare"]["step_ms"],
         "plain_ms": parse["plain_ms"],
         "bound_ms": parse["bound_ms"],
+        "step_bound_ms": parse["step_bound_ms"],
+        "plain_step_ms": parse["plain_step_ms"],
+        "speculate_max_abs_err": parse["speculate_max_abs_err"],
         "bound_by": "bytes",
         "library_ms": None,
         "library_note": "none: no PyTorch call parses BAM records",

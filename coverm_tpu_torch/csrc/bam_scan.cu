@@ -23,11 +23,28 @@
 // reports the bound, PERF.md §6 keeps it). The chain is a walk of
 // dependent loads (each record's length gives the next record's start), so
 // the design is about latency, not bandwidth:
-//   (a) speculate: one warp per 64 KiB region of the segment. The lanes
-//       test 32 offsets at a time for a plausible record header and lane 0
-//       walks the chain from the first one to the region's end, keeping
-//       the starts it meets (sorted, as offsets in the region) and where
-//       the chain leaves the region. All regions walk at once.
+//   (a) speculate: one warp per 64 KiB region of the segment, a lane per
+//       8 KiB sub-range of it (kLogSub; 8 lanes work, 24 idle). Each lane
+//       finds the first plausible record header in its sub-range (16
+//       offsets from each 16-byte load, plausible() only where the
+//       block_size and refID pass) and walks the chain from it to the
+//       first position at or past its sub-range's end: about 30 dependent
+//       loads, not the region's 235, and every lane's at once. Then one
+//       lane joins the chains in order, as the stitch joins regions: the
+//       region's chain starts at its first plausible header (the lowest
+//       lane's; the anchor in region 0) and, wherever it enters a
+//       sub-range, takes that lane's starts from there when the lane's
+//       chain holds that position (a lookup the lanes make in parallel
+//       before the join), else walks the sub-range again from there
+//       (rare; time, never the answer). A running count places each
+//       lane's starts; the lanes then write them (sorted, as offsets in
+//       the region), and the region's first start, where its chain left
+//       the region or stopped, and how many. A record longer than a
+//       sub-range sends the chain past several lanes; a chain that stops
+//       ends the region there. The walk reads about a 32-byte sector a
+//       record, scattered, and its time follows the sectors, not the
+//       chain's length: 2 KiB sub-ranges (32 lanes, each searching about
+//       half a record) were slower than 4-16 KiB on the card (PERF.md §6).
 //   (b) stitch, launched twice. The check: one block tests every region at
 //       once against the region before it. Region b is simple when the
 //       speculative exit of region b-1 (the anchor, the carried record's
@@ -50,13 +67,20 @@
 //       block_size 0 or at a record that runs past the end (the carry) and
 //       raises the chain error at block_size < 33 with the same record
 //       index.
-//   (c) records, launched twice. Analyse: a warp per region, a lane per
-//       record, does scan_chunk_records' per-record work (flag masks, the
-//       geometry check, the CIGAR walk, the NM search of scan_aux_tags,
-//       the single-read filter, the tid range check) and writes a count of
-//       blocks a record. Between the launches the caller takes the
-//       exclusive scan of the counts. Emit: the region warps write each
-//       record's blocks at its offset.
+//   (c) records, launched twice, a block of 256 threads a region and a
+//       thread a record, 256 at a time. Analyse: the block writes its
+//       records' starts (from the region's list, or walked from its entry
+//       when the stitch walked the region), then does scan_chunk_records'
+//       per-record work (flag masks, the geometry check, the CIGAR walk,
+//       the NM search of scan_aux_tags, the single-read filter, the tid
+//       range check), reading only the sectors it needs, and writes a
+//       count of blocks a record; a block scan sums the region's. The last
+//       block to finish (a counter in pwords[3]) scans the regions' sums
+//       into each region's first block and the total (pwords[0]), which
+//       the caller reads with the chunks' words to size the blocks: no
+//       scan over records between the launches. Emit: a block scan of the
+//       region's counts places each record's blocks after the region's
+//       first, and each thread writes its record's.
 //   (d) fold: one block a 32,768-record chunk, every thread working, a
 //       tile of 256 records at a time. A min-reduce finds the chunk's first
 //       error. Block scans compact the counted records before it in record
@@ -147,7 +171,14 @@ constexpr long long kChunk = 1ll << kChunkShift;  // the host's chunk
 constexpr int kRunWords = 9;    // tid, 6 integer sums, 2 float64 sums
 constexpr int kChunkWords = 8;  // n_primary, nm_missing, sorted, first and
                                 // last tid, err, runs, 0
-constexpr int kWarps = 4;       // warps a block of the region kernels
+constexpr int kWarps = 4;       // warps (regions) a block of the speculate
+// a lane's sub-range of a region in the speculate: 8 KiB, 8 a region (the
+// other 24 lanes of the warp idle; chosen by measurement, PERF.md §6)
+constexpr int kLogSub = 13;
+constexpr long long kSub = 1ll << kLogSub;
+constexpr int kSubs = (int)(kRegion >> kLogSub);
+constexpr int kLaneCap = (int)((kSub - 1) / 36 + 1);  // starts a sub-range
+static_assert(kSubs >= 1 && kSubs <= 32, "a lane a sub-range");
 constexpr int kTile = 2048;     // regions the stitch's walk stages at a time
 constexpr int kThreads = 256;   // threads a block of the stitch's check and
                                 // of the fold, records a fold tile
@@ -207,7 +238,6 @@ struct ScanArgs {
   long long* nm;
   long long* ind;
   double* idv;
-  const long long* blk_off;  // [n_records] exclusive scan of nblk
   int* btid;
   int* bstart;
   int* bend;
@@ -228,11 +258,12 @@ struct ScanArgs {
   int* read_end;
   long long* rec_end;
   int* block_read;     // [blocks]
-  // the parse's words: blocks, the first bad record, the first of corrupt
-  // geometry, regions done; all kNone at first
+  // blocks, the first bad record (the parse's), the first of corrupt
+  // geometry (the parse's), regions done; all kNone at first
   long long* pwords;   // [4]
   long long origin;    // rec_off and rec_end count from it
   uint16_t* roff;      // [n_records] each record's start in its region
+  // the scan's analyse and the parse's count:
   long long* rblk;     // [n_regions] the blocks of the region's records
   long long* rbase;    // [n_regions] the index of the region's first block
 };
@@ -248,6 +279,60 @@ SCAN_HD uint32_t ld_u32(const uint8_t* p) {
 
 SCAN_HD uint32_t ld_u16(const uint8_t* p) {
   return (uint32_t)p[0] | (uint32_t)p[1] << 8;
+}
+
+// The 32 bits from bit sh (0-31) of the 64-bit hi:lo.
+SCAN_HD uint32_t funnel(uint32_t lo, uint32_t hi, int sh) {
+#ifdef __CUDA_ARCH__
+  return __funnelshift_r(lo, hi, sh);
+#else
+  return sh ? (lo >> sh) | (hi << (32 - sh)) : lo;
+#endif
+}
+
+// The little-endian uint32 at d[pos], pos + 4 <= end, d 4-byte aligned
+// when `aligned`: on the card two aligned 4-byte loads (a lane's load
+// touches one line, not four byte loads each a wavefront of their own)
+// where both words end by `end`; else four byte loads.
+SCAN_HD uint32_t ld_u32_at(const uint8_t* d, long long pos, long long end,
+                           bool aligned) {
+#ifdef __CUDA_ARCH__
+  long long w = pos & ~3ll;
+  if (aligned && w + 8 <= end) {
+    const uint32_t* p = reinterpret_cast<const uint32_t*>(d + w);
+    return funnel(p[0], p[1], 8 * (int)(pos & 3));
+  }
+#else
+  (void)end;
+  (void)aligned;
+#endif
+  return ld_u32(d + pos);
+}
+
+// The 16 bytes at p as four little-endian words: one 16-byte load on the
+// card when p is 16-byte aligned (`aligned`).
+SCAN_HD void ld_16(const uint8_t* p, bool aligned, uint32_t* w) {
+#ifdef __CUDA_ARCH__
+  if (aligned) {
+    uint4 v = *reinterpret_cast<const uint4*>(p);
+    w[0] = v.x;
+    w[1] = v.y;
+    w[2] = v.z;
+    w[3] = v.w;
+    return;
+  }
+#else
+  (void)aligned;
+#endif
+  for (int k = 0; k < 4; k++) w[k] = ld_u32(p + 4 * k);
+}
+
+SCAN_HD int lowest_bit(unsigned m) {
+#ifdef __CUDA_ARCH__
+  return __ffs(m) - 1;
+#else
+  return __builtin_ctz(m);
+#endif
 }
 
 SCAN_HD long long f64_bits(double d) {
@@ -274,6 +359,18 @@ SCAN_HD void each(F f) {
   __syncthreads();
 #else
   for (int t = 0; t < kThreads; t++) f(t);
+#endif
+}
+
+// each for one warp: f(l) for every lane l, then the lanes meet at a
+// __syncwarp() (the host runs the lanes one after another).
+template <class F>
+SCAN_HD void each_lane(F f) {
+#ifdef __CUDA_ARCH__
+  f((int)(threadIdx.x & 31));
+  __syncwarp();
+#else
+  for (int l = 0; l < 32; l++) f(l);
 #endif
 }
 
@@ -384,29 +481,9 @@ SCAN_HD bool plausible(const uint8_t* d, long long q, long long end,
   return need <= (long long)bs && p[36 + l_rn - 1] == 0;
 }
 
-// The chain from p to the end of region b: its starts into list, where it
-// left the region (or stopped before), and how many.
-SCAN_HD void speculate_walk(const ScanArgs& a, long long b, long long p) {
-  long long r0 = a.start + (b << kLogRegion);
-  long long r1 = min_ll(r0 + kRegion, a.end);
-  int* list = a.list + b * kCap;
-  long long pos = p;
-  int n = 0;
-  while (pos < r1 && pos + 4 <= a.end) {
-    uint32_t bs = ld_u32(a.data + pos);
-    if (bs == 0 || pos + 4 + (long long)bs > a.end || bs < (uint32_t)a.min_bs)
-      break;
-    list[n++] = (int)(pos - r0);
-    pos += 4 + (long long)bs;
-  }
-  a.first[b] = p;
-  a.exit_[b] = pos;
-  a.cnt[b] = n;
-}
-
-// ---- (b) stitch
-
-SCAN_HD int find(const int* list, int n, int v) {
+// The index of v in the sorted list[0, n), or -1.
+template <class T>
+SCAN_HD int find(const T* list, int n, int v) {
   int lo = 0, hi = n;
   while (lo < hi) {
     int mid = (lo + hi) >> 1;
@@ -417,6 +494,161 @@ SCAN_HD int find(const int* list, int n, int v) {
   }
   return lo < n && list[lo] == v ? lo : -1;
 }
+
+// One region's speculation in a warp's shared memory: each lane's chain
+// over its sub-range (its first plausible header p, -1 when none; x,
+// where it left the sub-range or stopped; its n starts in st, as offsets
+// in the region), the index of x among the starts of the lane whose
+// sub-range holds x (link), and what the join takes: each lane's starts
+// from `from` on, placed at `at` in the region's list.
+struct SpecWarp {
+  long long p[32], x[32];
+  int n[32], link[32], from[32], at[32];
+  long long first, exit;
+  int cnt;
+  uint16_t st[kSubs * kLaneCap];
+};
+
+// The first plausible header in [s0, s1), or -1. The lane reads its
+// bytes 16 at a time from 16-byte lines counted from data's first byte
+// (one load each on the card when data is 16-byte aligned) and tests the
+// 16 offsets of a line at once, from its words and the next line's: a
+// block_size of 33 or more within the bytes and a refID in [-1, n_ref);
+// plausible() runs only where both pass.
+SCAN_HD long long lane_first(const ScanArgs& a, long long s0, long long s1) {
+  long long q1 = min_ll(s1, a.end - 35);  // plausible needs q + 36 <= end
+  if (s0 >= q1) return -1;
+  const uint8_t* d = a.data;
+  bool aligned = ((uintptr_t)d & 15) == 0;
+  uint32_t w[8], refs = (uint32_t)a.n_ref + 1;
+  long long c0 = s0 & ~15ll;
+  ld_16(d + c0, aligned, w);
+  for (; c0 < q1; c0 += 16) {
+    ld_16(d + c0 + 16, aligned, w + 4);  // c0 + 31 < end - 4
+    // block_size <= room - j at offset c0 + j; a false pass near the end
+    // (room under 33 + j) is caught below
+    uint32_t room = (uint32_t)min_ll(a.end - c0 - 4, 0xFFFFFFFFll);
+    unsigned m = 0;
+#pragma unroll
+    for (int j = 0; j < 16; j++) {
+      int k = j >> 2, sh = 8 * (j & 3);
+      uint32_t bs = funnel(w[k], w[k + 1], sh);
+      uint32_t ref = funnel(w[k + 1], w[k + 2], sh);
+      if (bs - 33u <= room - (uint32_t)j - 33u && ref + 1u < refs)
+        m |= 1u << j;
+    }
+    while (m) {
+      long long c = c0 + lowest_bit(m);
+      m &= m - 1;
+      if (c >= s0 && c < q1 && plausible(d, c, a.end, a.n_ref)) return c;
+    }
+    for (int k = 0; k < 4; k++) w[k] = w[k + 4];
+  }
+  return -1;
+}
+
+// The chain from pos over a sub-range that ends at s1: its starts into st
+// as offsets from r0, up to the first position at or past s1 or where it
+// stops (block_size 0, a record past the end, block_size < min_bs),
+// returned in *x; returns how many.
+SCAN_HD int lane_walk(const ScanArgs& a, long long pos, long long s1,
+                      long long r0, uint16_t* st, long long* x) {
+  bool aligned = ((uintptr_t)a.data & 3) == 0;
+  int n = 0;
+  while (pos < s1 && pos + 4 <= a.end) {
+    uint32_t bs = ld_u32_at(a.data, pos, a.end, aligned);
+    if (bs == 0 || pos + 4 + (long long)bs > a.end || bs < (uint32_t)a.min_bs)
+      break;
+    st[n++] = (uint16_t)(pos - r0);
+    pos += 4 + (long long)bs;
+  }
+  *x = pos;
+  return n;
+}
+
+// The index of e (in lane m's sub-range) among lane m's starts, or -1.
+SCAN_HD int lane_rank(const SpecWarp& s, int m, long long e, long long r0) {
+  long long f = s.p[m];
+  if (f == e) return 0;
+  if (f < 0 || f > e) return -1;
+  return find(s.st + m * kLaneCap, s.n[m], (int)(e - r0));
+}
+
+// The join (see (a) above), by one thread: from the region's first
+// plausible header, lane by lane in order.
+SCAN_HD void join_lanes(const ScanArgs& a, long long r0, long long r1,
+                        SpecWarp& s) {
+  int l = 0;
+  while (l < kSubs && s.p[l] < 0) l++;
+  s.first = s.exit = -1;
+  s.cnt = 0;
+  if (l == kSubs) return;  // no plausible header in the region
+  long long e = s.first = s.p[l];
+  int k = 0, total = 0;
+  while (true) {
+    long long s1 = min_ll(r0 + ((long long)(l + 1) << kLogSub), r1);
+    bool again = k < 0;  // the lane's chain misses e: walk it from e
+    if (again) {
+      s.n[l] = lane_walk(a, e, s1, r0, s.st + l * kLaneCap, &s.x[l]);
+      k = 0;
+    }
+    s.from[l] = k;
+    s.at[l] = total;
+    total += s.n[l] - k;
+    long long x = s.x[l];
+    if (x < s1 || x >= r1) {  // the chain stops, or leaves the region
+      s.exit = x;
+      break;
+    }
+    int m = (int)((x - r0) >> kLogSub);
+    k = again ? lane_rank(s, m, x, r0) : s.link[l];
+    l = m;
+    e = x;
+  }
+  s.cnt = total;
+}
+
+// Step (a) for region b by one warp (see (a) above).
+SCAN_HD void speculate_region(const ScanArgs& a, long long b, SpecWarp& s) {
+  long long r0 = a.start + (b << kLogRegion);
+  long long r1 = min_ll(r0 + kRegion, a.end);
+  each_lane([&](int l) {  // each lane's chain over its sub-range
+    long long s0 = r0 + ((long long)l << kLogSub);
+    long long s1 = min_ll(s0 + kSub, r1), p = -1, x = s0;
+    int n = 0;
+    if (l < kSubs && s0 < r1) {
+      p = b == 0 && l == 0 ? a.start : lane_first(a, s0, s1);  // the anchor
+      if (p >= 0) n = lane_walk(a, p, s1, r0, s.st + l * kLaneCap, &x);
+    }
+    s.p[l] = p;
+    s.x[l] = x;
+    s.n[l] = n;
+    s.from[l] = n;  // nothing taken unless the join comes by
+    s.at[l] = 0;
+  });
+  each_lane([&](int l) {  // where each lane's chain enters the next lane
+    long long s1 = min_ll(r0 + ((long long)(l + 1) << kLogSub), r1);
+    long long x = s.x[l];
+    s.link[l] = s.p[l] >= 0 && x >= s1 && x < r1
+                    ? lane_rank(s, (int)((x - r0) >> kLogSub), x, r0)
+                    : -1;
+  });
+  each_lane([&](int l) {
+    if (l == 0) join_lanes(a, r0, r1, s);
+  });
+  each_lane([&](int l) {  // each lane's share of the region's starts
+    int k = s.from[l], n = s.n[l];
+    int* list = a.list + b * kCap + s.at[l] - k;
+    for (int i = k; i < n; i++) list[i] = s.st[l * kLaneCap + i];
+    if (l == 0) {
+      a.first[b] = s.first;
+      a.exit_[b] = s.exit;
+      a.cnt[b] = s.cnt;
+    }
+  });
+}
+
+// ---- (b) stitch
 
 // The index of entry e (in the region from r0) among the starts of the
 // region's speculative chain (first start f, n starts in list), or -1.
@@ -603,6 +835,68 @@ SCAN_HD StitchState walk_start(const ScanArgs& a, long long F) {
 
 // ---- (c) records
 
+struct CountShared {
+  long long x[kThreads];  // a block scan's values
+  long long warp[kThreads / 32];
+  long long tot;
+  int last;  // this block finished last
+};
+
+// put(i, offset) for each of the c starts of region b's records (the true
+// chain's): from the region's list when the stitch took its speculation,
+// else walked from its entry by one thread.
+template <class F>
+SCAN_HD void region_starts(const ScanArgs& a, long long b, int c, F put) {
+  long long r0 = a.start + (b << kLogRegion);
+  int k = a.rank[b];
+  if (c && k >= 0) {
+    const int* list = a.list + b * kCap + k;
+    each([&](int t) {
+      for (int i = t; i < c; i += kThreads) put(i, r0 + list[i]);
+    });
+  } else if (c) {
+    each([&](int t) {
+      if (t) return;
+      long long pos = a.entry[b];
+      for (int i = 0; i < c; i++) {
+        put(i, pos);
+        pos += 4 + (long long)ld_u32(a.data + pos);
+      }
+    });
+  }
+}
+
+// Region b's blocks (s.tot, after a block scan) into rblk; the last block
+// to finish (a counter in pwords[3]) scans every region's into rbase, each
+// region's first block, and the total into pwords[0].
+SCAN_HD void region_done(const ScanArgs& a, long long b, CountShared& s) {
+  each([&](int t) {
+    if (t) return;
+    a.rblk[b] = s.tot;
+    s.last = count_done(a.pwords + 3) == kNone + a.n_regions - 1;
+  });
+  if (!s.last) return;
+  // a thread a run of `per` regions: their sum, one block scan, then each
+  // region's first block along the run
+  long long per = (a.n_regions + kThreads - 1) / kThreads;
+  each([&](int t) {
+    long long sum = 0, r1 = min_ll((t + 1) * per, a.n_regions);
+    for (long long r = t * per; r < r1; r++) sum += load_fresh(a.rblk + r);
+    s.x[t] = sum;
+  });
+  block_scan<1>(s.x, s.warp, &s.tot);
+  each([&](int t) {
+    long long o = s.x[t], r1 = min_ll((t + 1) * per, a.n_regions);
+    for (long long r = t * per; r < r1; r++) {
+      a.rbase[r] = o;
+      o += load_fresh(a.rblk + r);
+    }
+  });
+  each([&](int t) {
+    if (!t) a.pwords[0] = s.tot;
+  });
+}
+
 // The single-read filter of native/bamdecode.cpp single_read_passes
 // (readfilter.single_read_passes), bit for bit: IEEE float32 quotients, so
 // 0/0 is NaN and fails every test and x/0 is +inf and passes.
@@ -695,14 +989,20 @@ SCAN_HD int scan_aux_tags(const uint8_t* rec, long long aux, long long rec_len,
 }
 
 // scan_chunk_records' work on record g at off, less the fold: its flags,
-// tid, block count, NM, indels and identity.
-SCAN_HD void analyse(const ScanArgs& a, long long off, long long g) {
-  const uint8_t* rec = a.data + off + 4;
-  long long rec_len = ld_u32(a.data + off);
-  int32_t tid = (int32_t)ld_u32(rec);
-  int l_rn = rec[8];
-  uint32_t n_cigar = ld_u16(rec + 12);
-  uint32_t flag = ld_u16(rec + 14);
+// tid, block count, NM, indels and identity; returns the block count. The
+// fixed fields and the CIGAR come in whole words (ld_u32_at).
+SCAN_HD int analyse(const ScanArgs& a, long long off, long long g) {
+  const uint8_t* d = a.data;
+  bool al = ((uintptr_t)d & 3) == 0;
+  long long r = off + 4;  // the record after its block_size
+  const uint8_t* rec = d + r;
+  long long rec_len = ld_u32_at(d, off, a.end, al);
+  int32_t tid = (int32_t)ld_u32_at(d, r, a.end, al);
+  uint32_t w8 = ld_u32_at(d, r + 8, a.end, al);    // l_read_name, mapq
+  uint32_t w12 = ld_u32_at(d, r + 12, a.end, al);  // n_cigar_op, flag
+  int l_rn = w8 & 0xFF;
+  uint32_t n_cigar = w12 & 0xFFFF;
+  uint32_t flag = w12 >> 16;
   bool primary = (flag & 0x900) == 0;
   bool nonsupp = (flag & 0x800) == 0;
   uint8_t fl = (primary ? kPrimary : 0) | (nonsupp ? kNonsupp : 0);
@@ -713,14 +1013,14 @@ SCAN_HD void analyse(const ScanArgs& a, long long off, long long g) {
   bool pass = ((flag & (uint32_t)a.skip_mask) == 0) &&
               ((flag & (uint32_t)a.req_mask) == (uint32_t)a.req_mask);
   if (pass && mapped) {
-    int32_t l_seq = (int32_t)ld_u32(rec + 16);
+    int32_t l_seq = (int32_t)ld_u32_at(d, r + 16, a.end, al);
     if (l_seq < 0 || 32 + (long long)l_rn + 4ll * n_cigar > rec_len) {
       fl |= kError;
     } else {
-      const uint8_t* cig = rec + 32 + l_rn;
+      long long cig = r + 32 + l_rn;
       long long a_cov = 0;
       for (uint32_t k = 0; k < n_cigar; k++) {
-        uint32_t c = ld_u32(cig + 4 * k);
+        uint32_t c = ld_u32_at(d, cig + 4 * k, a.end, al);
         uint32_t op = c & 0xF;
         long long ln = c >> 4;
         if (op == 0 || op == 7 || op == 8) {
@@ -738,7 +1038,8 @@ SCAN_HD void analyse(const ScanArgs& a, long long off, long long g) {
       if (scan_aux_tags(rec, aux, rec_len, &nm, &as_score, false) != 0) {
         fl |= kError;
       } else if (a.use_filter &&
-                 !single_read_passes(a, rec[9], a_cov, l_seq, nm)) {
+                 !single_read_passes(a, (uint8_t)(w8 >> 8), a_cov, l_seq,
+                                     nm)) {
         // dropped by the filter: only its primary flag counts
       } else if (tid < 0 || tid >= a.n_ref) {
         fl |= kError;
@@ -751,26 +1052,28 @@ SCAN_HD void analyse(const ScanArgs& a, long long off, long long g) {
       }
     }
   }
+  if (!(fl & kCounted)) nb = 0;
   a.flags[g] = fl;
   a.tid[g] = tid;
-  a.nblk[g] = (fl & kCounted) ? nb : 0;
+  a.nblk[g] = nb;
   a.nm[g] = nm;
   a.ind[g] = ind;
   a.idv[g] = idv;
+  return nb;
 }
 
-// Record g's blocks at its offset of the exclusive scan.
-SCAN_HD void emit(const ScanArgs& a, long long g) {
-  long long off = a.rec_off[g];
-  const uint8_t* rec = a.data + off + 4;
-  int l_rn = rec[8];
-  uint32_t n_cigar = ld_u16(rec + 12);
-  const uint8_t* cig = rec + 32 + l_rn;
-  long long cursor = (int32_t)ld_u32(rec + 4);
-  long long o = a.blk_off[g];
+// Record g's blocks, from the segment's o-th.
+SCAN_HD void emit(const ScanArgs& a, long long g, long long o) {
+  const uint8_t* d = a.data;
+  bool al = ((uintptr_t)d & 3) == 0;
+  long long r = a.rec_off[g] + 4;
+  long long cursor = (int32_t)ld_u32_at(d, r + 4, a.end, al);
+  int l_rn = ld_u32_at(d, r + 8, a.end, al) & 0xFF;
+  uint32_t n_cigar = ld_u32_at(d, r + 12, a.end, al) & 0xFFFF;
+  long long cig = r + 32 + l_rn;
   int tid = a.tid[g];
   for (uint32_t k = 0; k < n_cigar; k++) {
-    uint32_t c = ld_u32(cig + 4 * k);
+    uint32_t c = ld_u32_at(d, cig + 4 * k, a.end, al);
     uint32_t op = c & 0xF;
     long long ln = c >> 4;
     if (op == 0 || op == 7 || op == 8) {
@@ -782,6 +1085,42 @@ SCAN_HD void emit(const ScanArgs& a, long long g) {
     } else if (op == 2 || op == 3) {
       cursor += ln;
     }
+  }
+}
+
+// Analyse for region b (see (c) above): its records' starts, their work,
+// and the region's blocks; the last block to finish scans every region's.
+SCAN_HD void analyse_region(const ScanArgs& a, long long b, CountShared& s) {
+  int c = a.count[b];
+  long long base = a.base[b];
+  long long* rec_off = a.rec_off + (c ? base : 0);
+  region_starts(a, b, c, [&](int i, long long off) { rec_off[i] = off; });
+  each([&](int t) {
+    long long nb = 0;
+    for (int i = t; i < c; i += kThreads)
+      nb += analyse(a, rec_off[i], base + i);
+    s.x[t] = nb;
+  });
+  block_scan<1>(s.x, s.warp, &s.tot);
+  region_done(a, b, s);
+}
+
+// Emit for region b (see (c) above): each record's blocks after the
+// region's first, 256 records at a time.
+SCAN_HD void emit_blocks(const ScanArgs& a, long long b, CountShared& s) {
+  int c = a.count[b];
+  long long base = a.base[b], o = c ? a.rbase[b] : 0;
+  for (int t0 = 0; t0 < c; t0 += kThreads) {
+    each([&](int t) {
+      int i = t0 + t;
+      s.x[t] = i < c ? a.nblk[base + i] : 0;
+    });
+    block_scan<1>(s.x, s.warp, &s.tot);
+    each([&](int t) {
+      int i = t0 + t;
+      if (i < c && a.nblk[base + i]) emit(a, base + i, o + s.x[t]);
+    });
+    o += s.tot;
   }
 }
 
@@ -975,13 +1314,6 @@ SCAN_HD long long n_chunks(const ScanArgs& a) {
 }
 
 // ---- (e) parse
-
-struct CountShared {
-  long long x[kThreads];  // a block scan's values
-  long long warp[kThreads / 32];
-  long long tot;
-  int last;  // this block finished last
-};
 
 struct ParseShared {
   alignas(16) uint8_t bytes[kStage + 16];  // the window, from the 16-byte
@@ -1232,22 +1564,8 @@ SCAN_HD void count_region(const ScanArgs& a, long long b, CountShared& s) {
   long long base = a.base[b];
   long long r0 = a.start + (b << kLogRegion);
   uint16_t* roff = a.roff + (c ? base : 0);
-  int k = a.rank[b];
-  if (c && k >= 0) {
-    const int* list = a.list + b * kCap + k;
-    each([&](int t) {
-      for (int i = t; i < c; i += kThreads) roff[i] = (uint16_t)list[i];
-    });
-  } else if (c) {  // the stitch walked the region: its starts from entry
-    each([&](int t) {
-      if (t) return;
-      long long pos = a.entry[b];
-      for (int i = 0; i < c; i++) {
-        roff[i] = (uint16_t)(pos - r0);
-        pos += 4 + (long long)ld_u32(a.data + pos);
-      }
-    });
-  }
+  region_starts(a, b, c,
+                [&](int i, long long off) { roff[i] = (uint16_t)(off - r0); });
   each([&](int t) {
     long long nb = 0;
     for (int i = t; i < c; i += kThreads) {
@@ -1262,31 +1580,7 @@ SCAN_HD void count_region(const ScanArgs& a, long long b, CountShared& s) {
     s.x[t] = nb;
   });
   block_scan<1>(s.x, s.warp, &s.tot);
-  each([&](int t) {
-    if (t) return;
-    a.rblk[b] = s.tot;
-    s.last = count_done(a.pwords + 3) == kNone + a.n_regions - 1;
-  });
-  if (!s.last) return;
-  // a thread a run of `per` regions: their sum, one block scan, then each
-  // region's first block along the run
-  long long per = (a.n_regions + kThreads - 1) / kThreads;
-  each([&](int t) {
-    long long sum = 0, r1 = min_ll((t + 1) * per, a.n_regions);
-    for (long long r = t * per; r < r1; r++) sum += load_fresh(a.rblk + r);
-    s.x[t] = sum;
-  });
-  block_scan<1>(s.x, s.warp, &s.tot);
-  each([&](int t) {
-    long long o = s.x[t], r1 = min_ll((t + 1) * per, a.n_regions);
-    for (long long r = t * per; r < r1; r++) {
-      a.rbase[r] = o;
-      o += load_fresh(a.rblk + r);
-    }
-  });
-  each([&](int t) {
-    if (!t) a.pwords[0] = s.tot;
-  });
+  region_done(a, b, s);
 }
 
 // The parse's emit for region b (see (e) above): every column of its
@@ -1337,33 +1631,11 @@ namespace {
 
 __global__ void __launch_bounds__(32 * kWarps)
     bam_scan_speculate(ScanArgs a) {
-  int lane = threadIdx.x & 31;
-  long long b = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  __shared__ SpecWarp s[kWarps];
+  int w = threadIdx.x >> 5;
+  long long b = (long long)blockIdx.x * kWarps + w;
   if (b >= a.n_regions) return;  // the whole warp
-  long long r0 = a.start + (b << kLogRegion);
-  long long r1 = min_ll(r0 + kRegion, a.end);
-  long long p = -1;
-  if (b == 0) {
-    p = a.start;  // the anchor
-  } else {
-    for (long long q0 = r0; q0 < r1; q0 += 32) {
-      long long q = q0 + lane;
-      unsigned m = __ballot_sync(
-          0xffffffffu, q < r1 && plausible(a.data, q, a.end, a.n_ref));
-      if (m) {
-        p = q0 + __ffs(m) - 1;
-        break;
-      }
-    }
-  }
-  if (lane != 0) return;
-  if (p < 0) {
-    a.first[b] = -1;
-    a.exit_[b] = -1;
-    a.cnt[b] = 0;
-  } else {
-    speculate_walk(a, b, p);
-  }
+  speculate_region(a, b, s[w]);
 }
 
 __global__ void __launch_bounds__(kThreads) bam_scan_stitch(ScanArgs a) {
@@ -1391,36 +1663,14 @@ __global__ void __launch_bounds__(256) bam_scan_stitch_walk(ScanArgs a) {
   if (threadIdx.x == 0) stitch_finish(a, s, from);
 }
 
-// mode 0 analyse (the record starts first), 1 emit: a warp a region
-__global__ void __launch_bounds__(32 * kWarps)
+// mode 0 analyse, 1 emit: a block a region (see (c) above)
+__global__ void __launch_bounds__(kThreads)
     bam_scan_records(ScanArgs a, int mode) {
-  int lane = threadIdx.x & 31;
-  long long b = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (b >= a.n_regions) return;
-  int c = a.count[b];
-  long long base = a.base[b];
-  if (mode == 0) {
-    int k = a.rank[b];
-    if (k >= 0) {
-      long long r0 = a.start + (b << kLogRegion);
-      const int* list = a.list + b * kCap + k;
-      for (int i = lane; i < c; i += 32) a.rec_off[base + i] = r0 + list[i];
-    } else if (lane == 0) {
-      long long pos = a.entry[b];
-      for (int i = 0; i < c; i++) {
-        a.rec_off[base + i] = pos;
-        pos += 4 + (long long)ld_u32(a.data + pos);
-      }
-    }
-    __syncwarp();
-    for (int i = lane; i < c; i += 32)
-      analyse(a, a.rec_off[base + i], base + i);
-  } else {
-    for (int i = lane; i < c; i += 32) {
-      long long g = base + i;
-      if (a.nblk[g]) emit(a, g);
-    }
-  }
+  __shared__ CountShared s;
+  if (mode == 0)
+    analyse_region(a, blockIdx.x, s);
+  else
+    emit_blocks(a, blockIdx.x, s);
 }
 
 // the parse's two launches, a block a region (see (e) above)
@@ -1469,8 +1719,8 @@ int bam_scan_launch(int step, const ScanArgs* args, int device,
       break;
     case kAnalyse:
     case kEmit:
-      if (region_blocks)
-        bam_scan_records<<<region_blocks, 32 * kWarps, 0, st>>>(
+      if (a.n_regions)
+        bam_scan_records<<<(unsigned)a.n_regions, kThreads, 0, st>>>(
             a, step == kAnalyse ? 0 : 1);
       break;
     case kParse:
@@ -1509,22 +1759,12 @@ extern "C" {
 int bam_scan_host(int step, const ScanArgs* args) {
   const ScanArgs& a = *args;
   switch (step) {
-    case kSpeculate:
-      for (long long b = 0; b < a.n_regions; b++) {
-        long long r0 = a.start + (b << kLogRegion);
-        long long r1 = min_ll(r0 + kRegion, a.end);
-        long long p = b == 0 ? a.start : -1;
-        for (long long q = r0; p < 0 && q < r1; q++)
-          if (plausible(a.data, q, a.end, a.n_ref)) p = q;
-        if (p < 0) {
-          a.first[b] = -1;
-          a.exit_[b] = -1;
-          a.cnt[b] = 0;
-        } else {
-          speculate_walk(a, b, p);
-        }
-      }
+    case kSpeculate: {
+      SpecWarp* s = new SpecWarp;
+      for (long long b = 0; b < a.n_regions; b++) speculate_region(a, b, *s);
+      delete s;
       return 0;
+    }
     case kStitchCheck: {
       CheckShared s;
       stitch_check(a, s);
@@ -1539,23 +1779,11 @@ int bam_scan_host(int step, const ScanArgs* args) {
       }
       return 0;
     }
-    case kAnalyse:
-      for (long long b = 0; b < a.n_regions; b++) {
-        int c = a.count[b];
-        long long pos = a.entry[b];
-        for (int i = 0; i < c; i++) {
-          long long g = a.base[b] + i;
-          if (a.rank[b] >= 0) {
-            a.rec_off[g] = a.start + (b << kLogRegion) +
-                           a.list[b * kCap + a.rank[b] + i];
-          } else {
-            a.rec_off[g] = pos;
-            pos += 4 + (long long)ld_u32(a.data + pos);
-          }
-          analyse(a, a.rec_off[g], g);
-        }
-      }
+    case kAnalyse: {
+      CountShared s;
+      for (long long b = 0; b < a.n_regions; b++) analyse_region(a, b, s);
       return 0;
+    }
     case kParse: {
       CountShared s;
       for (long long b = 0; b < a.n_regions; b++) count_region(a, b, s);
@@ -1573,10 +1801,11 @@ int bam_scan_host(int step, const ScanArgs* args) {
       delete s;
       return 0;
     }
-    case kEmit:
-      for (long long g = 0; g < a.n_records; g++)
-        if (a.nblk[g]) emit(a, g);
+    case kEmit: {
+      CountShared s;
+      for (long long b = 0; b < a.n_regions; b++) emit_blocks(a, b, s);
       return 0;
+    }
     default:
       return -1;
   }
@@ -1592,6 +1821,7 @@ extern "C" {
 int bam_scan_region_bytes() { return (int)kRegion; }
 int bam_scan_stage_bytes() { return kStage; }
 int bam_scan_region_cap() { return kCap; }
+int bam_scan_sub_bytes() { return (int)kSub; }
 int bam_scan_args_bytes() { return (int)sizeof(ScanArgs); }
 
 }  // extern "C"

@@ -50,6 +50,7 @@ SOURCE = cuda_build.SOURCES[2]  # csrc/bam_scan.cu
 REGION = 1 << 16        # bytes a region of the speculation
 STAGE = REGION + 2048   # bytes of a region's window that the parse stages
 CAP = (REGION - 1) // 36 + 1  # record starts a region can hold
+SUB = 1 << 13  # bytes of a lane's sub-range of a region in the speculate
 # the chain stops at a block_size below this (and at 0): the scan's, and
 # the parse's (the host parse walks on past a record of 32 bytes)
 SCAN_MIN_BS, PARSE_MIN_BS = 33, 32
@@ -98,7 +99,7 @@ class ScanArgs(ctypes.Structure):
                 ("entry", _vp), ("rank", _vp), ("count", _vp), ("base", _vp),
                 ("stitch", _vp), ("n_records", _i64), ("rec_off", _vp),
                 ("flags", _vp), ("tid", _vp), ("nblk", _vp), ("nm", _vp),
-                ("ind", _vp), ("idv", _vp), ("blk_off", _vp), ("btid", _vp),
+                ("ind", _vp), ("idv", _vp), ("btid", _vp),
                 ("bstart", _vp), ("bend", _vp), ("runs", _vp),
                 ("chunks", _vp), ("pos", _vp), ("flag", _vp), ("mapq", _vp),
                 ("l_seq", _vp), ("as_score", _vp), ("qname_hash", _vp),
@@ -125,6 +126,7 @@ def _check_layout(lib):
     if (lib.bam_scan_region_bytes() != REGION
             or lib.bam_scan_stage_bytes() != STAGE
             or lib.bam_scan_region_cap() != CAP
+            or lib.bam_scan_sub_bytes() != SUB
             or lib.bam_scan_args_bytes() != ctypes.sizeof(ScanArgs)):
         raise RuntimeError("csrc/bam_scan.cu and ops/bam_scan.py disagree "
                            "on the scan's layout")
@@ -325,15 +327,21 @@ class _Steps:
             return None
         return {k: a.elapsed_time(b) for k, (a, b) in self.ms.items()}
 
+    def spec_buffers(self):
+        """Step (a)'s outputs: (list, first, exit_, cnt)."""
+        n_regions = self.n_regions
+        return (self.buf("list", n_regions * CAP, torch.int32),
+                *(self.buf(name, n_regions, dtype) for name, dtype in (
+                    ("first", torch.int64), ("exit_", torch.int64),
+                    ("cnt", torch.int32))))
+
     def chain(self, launch, start):
         """Steps (a) and (b): the record starts; returns the stitch's
         words in host memory."""
         n_regions = self.n_regions
-        self.buf("list", n_regions * CAP, torch.int32)
-        for name, dtype in (("first", torch.int64), ("exit_", torch.int64),
-                            ("cnt", torch.int32), ("entry", torch.int64),
-                            ("rank", torch.int32), ("count", torch.int32),
-                            ("base", torch.int64)):
+        self.spec_buffers()
+        for name, dtype in (("entry", torch.int64), ("rank", torch.int32),
+                            ("count", torch.int32), ("base", torch.int64)):
             self.buf(name, n_regions, dtype)
         stitch = self.buf("stitch", STITCH_WORDS, torch.int64)
         if not n_regions:
@@ -350,11 +358,11 @@ def run_steps(data, start, end, n_ref, skip_mask, req_mask, read_filter,
     launch(step, ScanArgs): the kernels on a card (scan_segment), or the
     kernels' host build on the CPU (the tests). Allocates every buffer
     with torch.empty on that device and waits for the card twice before
-    the end: for the record count, then for the block count and the
-    chunks' words together (the fold runs before the block scan), which
-    size the blocks, and whose run counts gather the runs on the device.
-    The bytes after the last complete record come back with the outputs
-    (SegmentScan.tail)."""
+    the end: for the record count, then for the block count (which the
+    analyse's last block sums from the regions') and the chunks' words
+    together, which size the blocks, and whose run counts gather the
+    runs on the device. The bytes after the last complete record come
+    back with the outputs (SegmentScan.tail)."""
     st = _Steps(data, start, end, n_ref, SCAN_MIN_BS, timing)
     args, buf, timed = st.args, st.buf, st.timed
     use, mapq, alen, apct, ident = filter_fields(read_filter)
@@ -368,10 +376,13 @@ def run_steps(data, start, end, n_ref, skip_mask, req_mask, read_filter,
     buf("rec_off", n, torch.int64)
     buf("flags", n, torch.uint8)
     buf("tid", n, torch.int32)
-    nblk = buf("nblk", n, torch.int32)
+    buf("nblk", n, torch.int32)
     for name, dtype in (("nm", torch.int64), ("ind", torch.int64),
                         ("idv", torch.float64)):
         buf(name, n, dtype)
+    buf("rblk", st.n_regions, torch.int64)
+    buf("rbase", st.n_regions, torch.int64)
+    words = buf("pwords", 4, torch.int64, fill=NO_RECORD)
     n_chunks = -(-n // CHUNK)
     runs = buf("runs", n_chunks * CHUNK * RUN_WORDS, torch.int64)
     chunks = buf("chunks", n_chunks * CHUNK_WORDS, torch.int64)
@@ -379,15 +390,10 @@ def run_steps(data, start, end, n_ref, skip_mask, req_mask, read_filter,
         with timed(STEPS[step]):
             if n:
                 launch(step, args)
-    with timed("block_scan"):
-        incl = torch.cumsum(nblk, 0)
-        blk_off = incl - nblk
-    st.keep["blk_off"] = blk_off
-    args.blk_off = blk_off.data_ptr() if n else 0
-    sizes = st.to_host(torch.cat([incl[-1:], chunks]))
+    sizes = st.to_host(torch.cat([words[:1], chunks]))
     st.wait()
     n_blocks = int(sizes[0]) if n else 0
-    chunks_h = sizes[int(n > 0):].numpy().reshape(n_chunks, CHUNK_WORDS)
+    chunks_h = sizes[1:].numpy().reshape(n_chunks, CHUNK_WORDS)
     btid = buf("btid", n_blocks, torch.int32)
     bstart = buf("bstart", n_blocks, torch.int32)
     bend = buf("bend", n_blocks, torch.int32)
@@ -407,6 +413,39 @@ def run_steps(data, start, end, n_ref, skip_mask, req_mask, read_filter,
     return SegmentScan(outs[0].numpy(), outs[1].numpy(), outs[2].numpy(),
                        outs[3].numpy(), chunks_h, stitch_h, st.timing(),
                        outs[4].numpy())
+
+
+def speculate(data, start, end, n_ref, min_bs, launch=None):
+    """Step (a) alone over data[start:end): (first, exit_, cnt, starts),
+    starts each region's chain starts as offsets from data's first byte
+    (int64), as the plain version `speculate_reference` gives them. A
+    CUDA tensor goes through the kernel (or launch(step, ScanArgs), the
+    kernels' host build in the tests); a CPU tensor without `launch`
+    through the plain version."""
+    start, end = _check_input(data, start, end, "bam_scan")
+    if launch is None:
+        if data.device.type == "cpu":
+            return speculate_reference(data, start, end, n_ref, min_bs)
+        launch = _card_launch(data, "bam_scan")
+    st = _Steps(data, start, end, n_ref, min_bs, False)
+    lst, first, exit_, cnt = st.spec_buffers()
+    if st.n_regions:
+        launch(0, st.args)
+    lst, first, exit_, cnt = (t.cpu().numpy() for t in (lst, first, exit_,
+                                                        cnt))
+    starts = [start + b * REGION + lst[b * CAP:b * CAP + c].astype(np.int64)
+              for b, c in enumerate(cnt)]
+    return first, exit_, cnt, starts
+
+
+def speculate_reference(data, start, end, n_ref, min_bs):
+    """Plain version of step (a): the same four arrays as speculate."""
+    start, end = _check_input(data, start, end, "bam_scan")
+    n_regions = -(-(end - start) // REGION)
+    first, exit_, starts = _speculate(data.cpu(), start, end, n_regions,
+                                      n_ref, min_bs)
+    return (first, exit_, np.array([x.size for x in starts], np.int32),
+            starts)
 
 
 # ---- the parse: the classic record reader's columns
@@ -1059,6 +1098,19 @@ def bytes_read(data, start, end, n_ref, skip_mask, req_mask,
     _analyse(d, torch.from_numpy(off), int(n_ref), skip_mask, req_mask,
              read_filter, spans)
     return _sectors(spans, d.numel())
+
+
+def chain_bytes(data, start, end, n_ref, min_bs=SCAN_MIN_BS):
+    """The bytes that the speculate has to move over data[start:end): the
+    SECTOR-byte sectors that hold each record's block_size, read once,
+    and each start (4 bytes) and each region's first, exit and count (20
+    bytes) written once. From the plain version's chain."""
+    d = data.cpu()
+    off, _ = _chain(d, int(start), int(end), n_ref, min_bs)
+    at = torch.from_numpy(off)
+    n_regions = -(-(int(end) - int(start)) // REGION)
+    return _sectors([(at, at + 4)], d.numel()) + 4 * off.size \
+        + 20 * n_regions
 
 
 def bam_scan_reference(data, start, end, n_ref, skip_mask, req_mask,

@@ -1,9 +1,12 @@
-"""What the tools share: the device switch and the last JSON line."""
+"""What the tools share: the device switch, the last JSON line and the
+A/B tools' runs in turns."""
 
 from __future__ import annotations
 
 import json
 import os
+import subprocess
+import sys
 
 import torch
 
@@ -23,3 +26,32 @@ def result_line(dev: torch.device, **fields) -> str:
     return json.dumps({**fields, "device": str(dev),
                        "card": card_line() if dev.type == "cuda" else None,
                        "cpu_count": os.cpu_count()})
+
+
+def runs_in_turns(script, trees, args):
+    """Run `script --child *args` once for each version in turns (NAME,
+    this, this, NAME for each NAME of `trees`, {name: checkout}; "this"
+    the checkout that holds the script), each in a process of its own
+    that imports that checkout's package (PYTHONPATH) from its root, and
+    print each child's last line (a JSON object) with its version.
+    Returns the objects, or None when a child fails (its stderr
+    printed)."""
+    here = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(script))))
+    order = list(trees) + ["this", "this"] + list(reversed(trees))
+    trees = {**trees, "this": here}
+    runs = []
+    for name in order:
+        root = os.path.abspath(trees[name])
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(script), *args, "--child"],
+            env=dict(os.environ, PYTHONPATH=root), capture_output=True,
+            text=True, cwd=root)
+        if proc.returncode != 0:
+            print(proc.stderr, file=sys.stderr)
+            return None
+        got = json.loads(proc.stdout.strip().splitlines()[-1])
+        got["version"] = name
+        runs.append(got)
+        print(json.dumps(got), flush=True)
+    return runs

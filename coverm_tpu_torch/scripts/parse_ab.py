@@ -28,7 +28,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 
 ROUTES = {"bare": False, "kept": True}
@@ -112,28 +111,12 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("parse_ab: needs an NVIDIA card", file=sys.stderr)
         return 2
-    here = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    trees = dict(o.split("=", 1) for o in args.other)
-    order = [n for n in trees] + ["this", "this"] + list(reversed(trees))
-    trees["this"] = here
-    runs = []
-    for name in order:
-        env = dict(os.environ, PYTHONPATH=os.path.abspath(trees[name]))
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__),
-             os.path.abspath(args.bam),
-             "--segment-bytes", str(args.segment_bytes), "--child"],
-            env=env, capture_output=True, text=True,
-            cwd=os.path.abspath(trees[name]))
-        if proc.returncode != 0:
-            print(proc.stderr, file=sys.stderr)
-            return 1
-        got = json.loads(proc.stdout.strip().splitlines()[-1])
-        got["version"] = name
-        runs.append(got)
-        print(json.dumps(got), flush=True)
-    from .common import result_line
+    from .common import result_line, runs_in_turns
+    runs = runs_in_turns(__file__, dict(o.split("=", 1) for o in args.other),
+                         [os.path.abspath(args.bam), "--segment-bytes",
+                          str(args.segment_bytes)])
+    if runs is None:
+        return 1
     print(result_line(torch.device("cuda"), bam=args.bam, runs=runs))
     return 0
 

@@ -191,6 +191,15 @@ def forged_at(targets, n_regions=12):
     bytes holding two whole plausible records just past it: those
     regions' speculation starts on a false header whose chain never
     meets the true one, so the stitch's check cannot settle them."""
+    return forged_at_bytes([b * S.REGION for b in targets],
+                           (n_regions - 1) * S.REGION + S.REGION // 2)
+
+
+def forged_at_bytes(bounds, size_at_least):
+    """Sorted records of size_at_least bytes or more, where a record
+    spans each offset of `bounds` (sorted, 600 bytes or more apart), its
+    quality bytes holding two whole plausible records from 2 bytes past
+    that offset on, whose chain stops in bytes that no header holds."""
     fake = record(1, 5, 0, ((0, 40),), 40, name=b"fake")
     qual = b"\x1e" * 4 + fake * 2 + b"\x1e" * 20
     out, size, j = [], 0, 0
@@ -205,11 +214,11 @@ def forged_at(targets, n_regions=12):
         return record(j * N_REF // 6000, j, 0, ((0, 60),), 60, nm=j % 3,
                       aux=b"XZZ" + b"a" * extra + b"\0" if extra >= 0
                       else b"")
-    for b in sorted(targets):
+    for bound in bounds:
         forger = record(j * N_REF // 6000, j, 0, ((0, len(qual)),),
                         len(qual), qual=qual, name=b"forge")
         q_off = len(forger) - len(qual) - 4  # its quality's first byte
-        at = b * S.REGION - q_off - 2  # the boundary 2 bytes into it
+        at = bound - q_off - 2  # the boundary 2 bytes into it
         while at - size >= 2 * len(plain()) + 8:
             add(plain())
         pad = at - size - len(plain()) - 4  # a Z tag's 4 bytes and more
@@ -217,7 +226,7 @@ def forged_at(targets, n_regions=12):
         add(plain(pad))
         assert size == at
         add(forger)
-    while size < (n_regions - 1) * S.REGION + S.REGION // 2:
+    while size < size_at_least:
         add(plain())
     return out
 
@@ -679,7 +688,9 @@ def test_contig_through_the_card_route_prints_the_jax_tsv(
 def test_cuda_kernels_equal_plain_and_host(tmp_path):
     """The kernels on the card against the plain version and the host
     scan, on every stream and on a bench-shaped BAM segment by segment,
-    and one launch counted a scan."""
+    and one launch counted a scan; the speculate alone (first, exit_,
+    cnt and the starts) against its plain version for the scan's min_bs
+    and the parse's."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     from coverm_tpu_torch.synth import write_sorted_bam
@@ -699,10 +710,18 @@ def test_cuda_kernels_equal_plain_and_host(tmp_path):
     header, start = _parse_header(data)
     cases.append((data, start, header.n_ref))
     for data, start, n_ref in cases:
+        on_card = torch.from_numpy(data).to(dev)
+        for min_bs in (S.SCAN_MIN_BS, S.PARSE_MIN_BS):
+            got = S.speculate(on_card, start, data.size, n_ref, min_bs)
+            want = S.speculate_reference(torch.from_numpy(data), start,
+                                         data.size, n_ref, min_bs)
+            for g, w in zip(got[:3], want[:3]):
+                np.testing.assert_array_equal(g, w)
+            for g, w in zip(got[3], want[3]):
+                np.testing.assert_array_equal(g, w)
         for rf in (None, _metabat_filter()):
             want = outcome_host(data, start, data.size, n_ref, rf)
             before = S.bam_scan_launches
-            on_card = torch.from_numpy(data).to(dev)
             sc = S.scan_segment(on_card, start, data.size, n_ref, SKIP,
                                 REQ, rf, timing=True)
             assert S.bam_scan_launches == before + 1
@@ -713,7 +732,7 @@ def test_cuda_kernels_equal_plain_and_host(tmp_path):
             np.testing.assert_array_equal(sc.stitch[:4], plain.stitch[:4])
             np.testing.assert_array_equal(sc.runs, plain.runs)
             np.testing.assert_array_equal(sc.chunks, plain.chunks)
-            assert set(sc.timing) == {*S.STEPS, "block_scan", "d2h"}
+            assert set(sc.timing) == {*S.STEPS, "d2h"}
             np.testing.assert_array_equal(
                 sc.tail, data[sc.end_off:data.size])
 
